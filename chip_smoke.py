@@ -1,0 +1,377 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port on one GPU: build, check, run.
+
+    python3 chip_smoke.py
+
+Needs one CUDA device and the CUDA toolkit; imports nothing of JAX or of
+``swem_tpu``. Phases, each fatal on failure:
+
+0. setup: the card's name and power limit; TF32 off for convolutions and
+   matrix products (the reference computes in full float32).
+1. build: compile ``swem_tpu_torch/csrc/*.cu`` for sm_90a, one nvcc each,
+   in parallel.
+2. K1 (EM loop kernel) against its plain PyTorch version on the card, at the
+   flagship shape (1 and 4 rounds) and a ragged shape with an empty slot.
+3. K2 (fused memory read kernel) against its plain version at the flagship
+   shape, all bases valid and with invalid bases; ``library_ms`` times
+   ``F.scaled_dot_product_attention`` on the same read (never used by the port).
+4. main path: ``engine.run_video`` with the flagship ``ModelConfig()`` and
+   seeded random weights on a synthetic 480x864 video of T=10 frames, two
+   objects, output 480x854. Each kernel must have been launched exactly T-1
+   times. The first 3 frames are rerun on the CPU (plain versions) and the
+   index maps compared. One more run under ``torch.profiler`` prints where
+   the device time goes and the device's idle share.
+5. one JSON line with every kernel's numbers, then the card line, then the
+   final ``{"ok": true, ...}`` line.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent
+T_VIDEO = 10
+IN_SIZE, OUT_SIZE = (480, 864), (480, 854)
+# peak rates of an H100 (NVIDIA data sheet): FP32 outside the tensor cores, memory
+PEAKS = {"sxm": (67e12, 3.35e12), "pcie": (51e12, 2.0e12)}
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
+    raise SystemExit(1)
+
+
+def card_line() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps: int = 25, warmup: int = 3) -> float:
+    """Median CUDA-event time of ``fn`` over ``reps`` runs, after warm-up."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def compare(name: str, got, ref, rtol: float, atol: float) -> float:
+    """Fail unless |got - ref| <= atol + rtol |ref| everywhere; return max |got - ref|."""
+    import torch
+
+    got, ref = got.double(), ref.double()
+    if not bool(torch.isfinite(got).all()):
+        fail(f"{name}: non-finite values")
+    err = (got - ref).abs()
+    bad = err > atol + rtol * ref.abs()
+    if bool(bad.any()):
+        fail(f"{name}: {int(bad.sum())} of {bad.numel()} elements outside rtol {rtol} "
+             f"atol {atol} (max abs err {float(err.max()):.3e})")
+    return float(err.max())
+
+
+def bound_ms(flops: float, nbytes: float, peaks) -> tuple:
+    t_ops, t_bytes = flops / peaks[0] * 1e3, nbytes / peaks[1] * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def em_inputs(rng, B, N, P, Ck, L, x_std, empty_slot=None):
+    import torch
+
+    x = rng.standard_normal((B, P, Ck)).astype(np.float32) * np.float32(x_std)
+    fg = (rng.random((B, N, P)) > 0.5).astype(np.float32)
+    masks = np.stack([1.0 - fg, fg], axis=2)
+    if empty_slot is not None:
+        masks[:, empty_slot] = 0.0
+    kappa0 = rng.standard_normal((B, N, 2, Ck, L)).astype(np.float32)
+    kappa0 /= np.linalg.norm(kappa0, axis=-2, keepdims=True) + 1e-6
+    zita0 = np.full((B, N, 2, 1, L), 1e-6, np.float32)
+    return [torch.from_numpy(a).cuda() for a in (x, masks, kappa0, zita0)]
+
+
+def check_em(peaks) -> dict:
+    """K1 against its plain version; returns the kernel's JSON entry."""
+    import torch
+    from swem_tpu_torch.ops import em_kernel
+
+    rng = np.random.default_rng(0)
+    tau = 0.05
+    # rtol/atol from the JAX package's kernel test: tight for one round; at 4
+    # rounds tau = 0.05 makes the loop chaotic, so summation-order ulps grow.
+    # Flagship x has std 0.3 (|x| about 3.4): with std 1 even float32 against
+    # float64 of the same plain code leaves these bounds at 4 rounds.
+    cases = [
+        ("flagship 1 round", (1, 2, 1620, 128, 128), 0.3, 1, None, (1e-4, 1e-5)),
+        ("flagship 4 rounds", (1, 2, 1620, 128, 128), 0.3, 4, None, (5e-2, 1e-2)),
+        ("ragged, empty slot", (2, 8, 130, 16, 8), 1.0, 4, 5, (5e-2, 1e-2)),
+    ]
+    max_err = 0.0
+    for name, shape, x_std, n_iters, empty, (rtol, atol) in cases:
+        x, masks, kappa0, zita0 = em_inputs(rng, *shape, x_std, empty)
+        got = em_kernel.em_loop(x, masks, kappa0, zita0, n_iters=n_iters, tau=tau)
+        ref = em_kernel.em_loop_plain(x, masks, kappa0, zita0, n_iters=n_iters, tau=tau)
+        torch.cuda.synchronize()
+        errs = [compare(f"K1 {name} {o}", g, r, rtol, atol)
+                for o, g, r in zip(("z", "kappa", "zita"), got, ref)]
+        if empty is not None:
+            compare(f"K1 {name} empty slot kappa unchanged", got[1][:, empty], kappa0[:, empty],
+                    1e-5, 1e-6)
+        print(f"K1 {name}: max abs err z {errs[0]:.3e} kappa {errs[1]:.3e} zita {errs[2]:.3e}",
+              flush=True)
+        if name == "flagship 4 rounds":
+            max_err = max(errs)
+            B, N, P, Ck, L = shape
+            ms = cuda_ms(lambda: em_kernel.em_loop(x, masks, kappa0, zita0, n_iters=4, tau=tau))
+            plain = cuda_ms(lambda: em_kernel.em_loop_plain(x, masks, kappa0, zita0,
+                                                            n_iters=4, tau=tau))
+            gemm = 2.0 * P * Ck * 2 * N * L  # one (P,Ck)@(Ck,N*2*L) product
+            # E and M each round; the W step's product is the next E step's
+            # scaled by 1/|x| per pixel, so the least work has no third GEMM
+            flops = gemm * 2 * n_iters
+            nbytes = 4.0 * (x.numel() + masks.numel() + kappa0.numel() + zita0.numel()
+                            + sum(t.numel() for t in got))
+            b_ms, b_by = bound_ms(flops, nbytes, peaks)
+    print(f"K1 time: kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by})",
+          flush=True)
+    return {"name": "em_loop", "route": "cuda", "source": "swem_tpu_torch/csrc/em_loop.cu",
+            "replaces": "swem_tpu/ops/em_pallas.py:56 (_em_kernel, pallas_call at :196)",
+            "launches": None, "max_abs_err": max_err, "ms": ms, "plain_ms": plain,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
+def check_read(peaks) -> dict:
+    """K2 against its plain version; returns the kernel's JSON entry."""
+    import torch
+    import torch.nn.functional as F
+    from swem_tpu_torch.ops import read_kernel
+    from swem_tpu_torch.ops.em_kernel import l2norm
+
+    rng = np.random.default_rng(1)
+    tau = 0.05
+    B, N, P, Ck, L, Cv = 1, 2, 1620, 128, 128, 512
+    Lm = 2 * L
+    qk, mk, mv = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).cuda()
+                  for s in ((B, P, Ck), (B, N, 2, Ck, Lm), (B, N, 2, Cv, Lm)))
+    all_valid = torch.ones((B, N, 2, Lm), dtype=torch.bool, device="cuda")
+    masked = all_valid.clone()
+    masked[:, 0, :, L:] = False  # object 0: update bank not yet valid
+    masked[:, 1] = False  # object 1: not seen yet
+    max_err = 0.0
+    for name, valid in (("all valid", all_valid), ("update bank / object invalid", masked)):
+        got = read_kernel.read_affinity(qk, mk, mv, valid, tau=tau)
+        ref = read_kernel.read_plain(l2norm(qk, -1), l2norm(mk, -2), mv, valid, tau=tau)
+        torch.cuda.synchronize()
+        errs = [compare(f"K2 {name} {o}", g, r, 1e-4, 1e-6)
+                for o, g, r in zip(("mem_out", "exp_aff"), got, ref)]
+        if name != "all valid" and bool(got[0][:, 1].any() or got[1][:, 1].any()):
+            fail("K2: an object with no valid base must read exactly 0")
+        max_err = max(max_err, *errs)
+        print(f"K2 {name}: max abs err mem_out {errs[0]:.3e} exp_aff {errs[1]:.3e}", flush=True)
+    ms = cuda_ms(lambda: read_kernel.read_affinity(qk, mk, mv, all_valid, tau=tau))
+    plain = cuda_ms(lambda: read_kernel.read_plain(l2norm(qk, -1), l2norm(mk, -2), mv,
+                                                   all_valid, tau=tau))
+    # yardstick: one library attention call for mem_out on the same normalized keys
+    q = l2norm(qk, -1)[:, None].expand(B, N, P, Ck).reshape(B * N, 1, P, Ck).contiguous()
+    k = l2norm(mk, -2).transpose(-1, -2).reshape(B * N, 1, 2 * Lm, Ck).contiguous()
+    v = mv.transpose(-1, -2).reshape(B * N, 1, 2 * Lm, Cv).contiguous()
+    mask = all_valid.reshape(B * N, 1, 1, 2 * Lm)
+    library = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                             scale=1.0 / tau))
+    flops = 2.0 * P * Ck * (2 * N * Lm) + 2.0 * P * (2 * Lm) * Cv * N
+    nbytes = 4.0 * (qk.numel() + mk.numel() + mv.numel() + B * N * P * Cv + B * N * 2 * Lm * P) \
+        + all_valid.numel()
+    b_ms, b_by = bound_ms(flops, nbytes, peaks)
+    print(f"K2 time: kernel {ms:.4f} ms, plain {plain:.4f} ms, sdpa {library:.4f} ms, "
+          f"bound {b_ms:.4f} ms ({b_by})", flush=True)
+    return {"name": "read_memory", "route": "cuda", "source": "swem_tpu_torch/csrc/read_memory.cu",
+            "replaces": "swem_tpu/ops/read_pallas.py:57 (_read_kernel, pallas_call at :161)",
+            "launches": None, "max_abs_err": max_err, "ms": ms, "plain_ms": plain,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library}
+
+
+def synthetic_video(T: int, n_objs: int):
+    """Frames (T,1,480,864,3) in [0,1] and the init mask at 480x854 (two boxes)."""
+    rng = np.random.default_rng(0)
+    frames = rng.random((T, 1) + IN_SIZE + (3,)).astype(np.float32)
+    init_mask = np.zeros((1,) + OUT_SIZE + (n_objs + 1,), np.float32)
+    init_mask[..., 0] = 1.0
+    for ch, (y0, y1, x0, x1) in ((1, (100, 220, 150, 330)), (2, (260, 400, 500, 700))):
+        init_mask[:, y0:y1, x0:x1, ch] = 1.0
+        init_mask[:, y0:y1, x0:x1, 0] = 0.0
+    return frames, init_mask
+
+
+def main_path(card: str) -> dict:
+    """Flagship run_video on the card; returns the kernels' launch counts."""
+    import torch
+    from swem_tpu_torch import engine
+    from swem_tpu_torch.config import ModelConfig
+    from swem_tpu_torch.models.swem import SWEM
+    from swem_tpu_torch.ops import em_kernel, read_kernel
+
+    cfg = ModelConfig()
+    model = SWEM(cfg).init_weights(0)  # device None: CUDA
+    frames_np, mask_np = synthetic_video(T_VIDEO, cfg.max_objs)
+    frames = torch.from_numpy(frames_np).cuda()
+    init_mask = torch.from_numpy(mask_np).cuda()
+    active = torch.ones((1, cfg.max_objs), dtype=torch.bool, device="cuda")
+
+    # warm-up pass with every module output and the final memory checked finite
+    bad = []
+
+    def finite_hook(mod, _inp, out):
+        outs = out if isinstance(out, tuple) else (out,)
+        if any(isinstance(o, torch.Tensor) and not bool(torch.isfinite(o).all()) for o in outs):
+            bad.append(type(mod).__name__)
+
+    hooks = [m.register_forward_hook(finite_hook) for m in model.modules()]
+    mem = engine.init_memory(model, torch.Generator().manual_seed(1), frames[0], init_mask, active)
+    mem, _ = engine.run_chunk(model, mem, frames[1:], active, OUT_SIZE)
+    for h in hooks:
+        h.remove()
+    for bank in (mem.first, mem.update):
+        for t in (bank.kappa, bank.nu, bank.zita):
+            if not bool(torch.isfinite(t).all()):
+                bad.append("memory")
+    if bad:
+        fail(f"main path: non-finite values in {sorted(set(bad))}")
+
+    em_kernel.launches = read_kernel.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    preds = engine.run_video(model, torch.Generator().manual_seed(1), frames, init_mask, active,
+                             OUT_SIZE)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {"em_loop": em_kernel.launches, "read_memory": read_kernel.launches}
+    if preds.shape != (T_VIDEO - 1, 1) + OUT_SIZE or preds.dtype != torch.uint8:
+        fail(f"main path: preds {tuple(preds.shape)} {preds.dtype}")
+    if int(preds.max()) > cfg.max_objs:
+        fail("main path: index out of range")
+    for name, n in launches.items():
+        if n != T_VIDEO - 1:
+            fail(f"main path: kernel {name} launched {n} times, expected {T_VIDEO - 1}")
+    print(f"main path: run_video T={T_VIDEO} in {dt:.3f} s = {T_VIDEO / dt:.2f} frames/s "
+          f"(smoke number, not a benchmark) on {card}; launches {launches}", flush=True)
+
+    # the same weights and draw on the CPU, plain versions, first 3 frames
+    cpu = SWEM(cfg, device="cpu")
+    cpu.load_state_dict(model.state_dict())
+    t0 = time.perf_counter()
+    ref = engine.run_video(cpu, torch.Generator().manual_seed(1), frames[:3].cpu(),
+                           init_mask.cpu(), active.cpu(), OUT_SIZE)
+    same = float((ref == preds[:2].cpu()).double().mean())
+    counts = lambda p: np.bincount(p.flatten().numpy(), minlength=cfg.max_objs + 1).tolist()  # noqa: E731
+    print(f"CPU rerun of frames 0-2 ({time.perf_counter() - t0:.1f} s): identical index pixels "
+          f"{same:.6f}; per-label pixels card {counts(preds[:2].cpu())} cpu {counts(ref)}",
+          flush=True)
+    if same < 0.99:
+        fail(f"main path: only {same:.4f} of index pixels agree with the CPU run")
+    if em_kernel.launches != T_VIDEO - 1 or read_kernel.launches != T_VIDEO - 1:
+        fail("the CPU run must not launch kernels")
+    profile_main_path(model, frames, init_mask, active)
+    return launches
+
+
+def profile_main_path(model, frames, init_mask, active) -> None:
+    """Where the main path's time goes: one more ``run_video`` under
+    ``torch.profiler``, device time summed by kernel group, and the share of
+    the run's wall time in which no kernel ran on the card."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from swem_tpu_torch import engine
+
+    groups = (("em_loop kernel", ("em_e_kernel", "em_m_partial", "em_m_final")),
+              ("read_memory kernel", ("read_kernel",)),
+              ("convolution", ("conv", "cudnn", "fprop", "dgrad", "xmma", "implicit")),
+              ("matmul", ("gemm", "gemv")))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.run_video(model, torch.Generator().manual_seed(1), frames, init_mask, active,
+                         OUT_SIZE)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        print("profile: the profiler recorded no device time", flush=True)
+        return
+    by_group, by_name, spans = {}, {}, []
+    for e in kernels:
+        dur = e.time_range.end - e.time_range.start
+        spans.append((e.time_range.start, e.time_range.end))
+        name = e.name.lower()
+        group = next((g for g, keys in groups if any(k in name for k in keys)), "other")
+        by_group[group] = by_group.get(group, 0.0) + dur
+        by_name[e.name[:60]] = by_name.get(e.name[:60], 0.0) + dur
+    busy, end = 0.0, -float("inf")  # union of kernel intervals
+    for s, e in sorted(spans):
+        busy += max(0.0, e - max(s, end))
+        end = max(end, e)
+    total = sum(by_group.values())
+    print(f"profile: run_video T={T_VIDEO} wall {wall_us / 1e3:.3f} ms, {len(kernels)} kernels, "
+          f"device busy {busy / 1e3:.3f} ms, idle share {1 - busy / wall_us:.4f}", flush=True)
+    for g, us in sorted(by_group.items(), key=lambda kv: -kv[1]):
+        print(f"  {g}: {us / 1e3:.3f} ms ({us / total:.4f} of device time)", flush=True)
+    for n, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+        print(f"  top kernel {us / 1e3:.3f} ms: {n}", flush=True)
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    if not (ROOT / "swem_tpu_torch" / "csrc").is_dir():
+        print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT))
+    from swem_tpu_torch.ops import build
+
+    card = card_line()
+    print(f"card: {card}", flush=True)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print("TF32 off: cudnn.allow_tf32=False, cuda.matmul.allow_tf32=False", flush=True)
+    peaks = PEAKS["pcie" if "PCIe" in card else "sxm"]
+
+    t0 = time.perf_counter()
+    report = build.build()
+    print(f"build: {time.perf_counter() - t0:.1f} s wall, "
+          + ", ".join(f"{k} {v['seconds']:.1f} s" for k, v in report.items()), flush=True)
+    for name, r in report.items():
+        for line in r["log"].splitlines():
+            if "registers" in line or "spill" in line or "error" in line:
+                print(f"  {name}: {line.strip()}", flush=True)
+
+    entries = [check_em(peaks), check_read(peaks)]
+    launches = main_path(card)
+    for e in entries:
+        e["launches"] = launches[e["name"]]
+    print(json.dumps({"kernels": entries}), flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,154 @@
+"""Shared conv building blocks (NCHW), counterparts of ``swem_tpu/models/layers.py``.
+
+Attribute names follow the reference SWEM implementation's torch
+``state_dict`` keys (``ChannelGate.mlp.1``, ``SpatialGate.spatial.conv``,
+``downsample``), so ``io/jax_import.py`` maps weights by renaming alone.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from swem_tpu_torch.ops.resize import resize_nchw
+
+
+def conv3x3(cin: int, cout: int, stride: int = 1, bias: bool = True) -> nn.Conv2d:
+    return nn.Conv2d(cin, cout, 3, stride=stride, padding=1, bias=bias)
+
+
+def conv1x1(cin: int, cout: int, stride: int = 1, bias: bool = True) -> nn.Conv2d:
+    return nn.Conv2d(cin, cout, 1, stride=stride, bias=bias)
+
+
+class FrozenBatchNorm(nn.Module):
+    """BatchNorm permanently in inference mode, folded to one multiply-add.
+
+    ``weight``/``bias`` are parameters, ``running_mean``/``running_var``
+    buffers (no ``num_batches_tracked``: the statistics never update).
+    """
+
+    def __init__(self, features: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
+
+    def forward(self, x):
+        w = self.weight * torch.rsqrt(self.running_var + self.eps)
+        b = self.bias - self.running_mean * w
+        return x * w[:, None, None] + b[:, None, None]
+
+
+class ResBlock(nn.Module):
+    """Pre-activation residual block: x + conv2(relu(conv1(relu(x))))."""
+
+    def __init__(self, cin: int, cout: int):
+        super().__init__()
+        self.conv1 = conv3x3(cin, cout)
+        self.conv2 = conv3x3(cout, cout)
+        self.downsample = conv3x3(cin, cout) if cin != cout else None
+
+    def forward(self, x):
+        r = self.conv2(F.relu(self.conv1(F.relu(x))))
+        if self.downsample is not None:
+            x = self.downsample(x)
+        return x + r
+
+
+class ChannelGate(nn.Module):
+    """CBAM channel attention."""
+
+    def __init__(self, features: int, reduction: int = 16):
+        super().__init__()
+        self.mlp = nn.Sequential(
+            nn.Flatten(), nn.Linear(features, features // reduction), nn.ReLU(),
+            nn.Linear(features // reduction, features),
+        )
+
+    def forward(self, x):
+        att = self.mlp(x.mean(dim=(-2, -1))) + self.mlp(x.amax(dim=(-2, -1)))
+        return x * torch.sigmoid(att)[:, :, None, None]
+
+
+class _SpatialConv(nn.Module):
+    def __init__(self):
+        super().__init__()
+        self.conv = nn.Conv2d(2, 1, 7, padding=3)
+
+    def forward(self, x):
+        return self.conv(x)
+
+
+class SpatialGate(nn.Module):
+    """CBAM spatial attention: 7x7 conv over [max_c, mean_c]."""
+
+    def __init__(self):
+        super().__init__()
+        self.spatial = _SpatialConv()
+
+    def forward(self, x):
+        pooled = torch.cat([x.amax(dim=1, keepdim=True), x.mean(dim=1, keepdim=True)], dim=1)
+        return x * torch.sigmoid(self.spatial(pooled))
+
+
+class CBAM(nn.Module):
+    def __init__(self, features: int, reduction: int = 16):
+        super().__init__()
+        self.ChannelGate = ChannelGate(features, reduction)
+        self.SpatialGate = SpatialGate()
+
+    def forward(self, x):
+        return self.SpatialGate(self.ChannelGate(x))
+
+
+class FeatureFusionBlock(nn.Module):
+    """x = ResBlock(cat[x, f16]); x = ResBlock(x + CBAM(x))."""
+
+    def __init__(self, cin: int, cout: int):
+        super().__init__()
+        self.block1 = ResBlock(cin, cout)
+        self.attention = CBAM(cout)
+        self.block2 = ResBlock(cout, cout)
+
+    def forward(self, x, f16):
+        x = self.block1(torch.cat([x, f16], dim=1))
+        return self.block2(x + self.attention(x))
+
+
+class GLUFusion(nn.Module):
+    """out = layer_f(x) * sigmoid(layer_a(x)), 3x3 convs."""
+
+    def __init__(self, cin: int, cout: int):
+        super().__init__()
+        self.layer_f = conv3x3(cin, cout)
+        self.layer_a = conv3x3(cin, cout)
+
+    def forward(self, x):
+        return self.layer_f(x) * torch.sigmoid(self.layer_a(x))
+
+
+class UpsampleBlock(nn.Module):
+    """Skip-connected x2 upsampling: ResBlock(skip_conv(skip) + bilinear(up)).
+
+    ``skip`` depends only on the encoder's skip feature (computed once per
+    frame), ``merge`` on the sequential decode state.
+    """
+
+    def __init__(self, skip_c: int, up_c: int, out_c: int):
+        super().__init__()
+        self.skip_conv = conv3x3(skip_c, up_c)
+        self.out_conv = ResBlock(up_c, out_c)
+
+    def skip(self, skip_f):
+        return self.skip_conv(skip_f)
+
+    def merge(self, skip_x, up_f):
+        up = resize_nchw(up_f, tuple(skip_x.shape[-2:]), "bilinear")
+        return self.out_conv(skip_x + up)
+
+    def forward(self, skip_f, up_f):
+        return self.merge(self.skip(skip_f), up_f)

@@ -1,0 +1,122 @@
+"""ResNet trunks through layer3 (NCHW), counterparts of ``swem_tpu/models/resnet.py``.
+
+Blocks follow torchvision's attribute names (``conv1``/``bn1``/...,
+``downsample.0``/``downsample.1``). The key trunk has no conv biases; the
+value trunk (mod_resnet) has a bias on every conv.
+"""
+
+from __future__ import annotations
+
+from typing import List, Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from swem_tpu_torch.models.layers import FrozenBatchNorm, conv1x1, conv3x3
+
+BACKBONE_FEATURES = {
+    # (f16, f8, f4) channel counts
+    "resnet50": (1024, 512, 256),
+    "resnet18": (256, 128, 64),
+}
+BACKBONE_LAYERS = {"resnet50": ("bottleneck", (3, 4, 6)), "resnet18": ("basic", (2, 2, 2))}
+
+
+class BasicBlock(nn.Module):
+    expansion = 1
+
+    def __init__(self, inplanes: int, planes: int, stride: int = 1, downsample: bool = False,
+                 bias: bool = False):
+        super().__init__()
+        self.conv1 = conv3x3(inplanes, planes, stride, bias=bias)
+        self.bn1 = FrozenBatchNorm(planes)
+        self.conv2 = conv3x3(planes, planes, bias=bias)
+        self.bn2 = FrozenBatchNorm(planes)
+        self.downsample = (
+            nn.Sequential(conv1x1(inplanes, planes, stride, bias=bias), FrozenBatchNorm(planes))
+            if downsample else None
+        )
+
+    def forward(self, x):
+        out = F.relu(self.bn1(self.conv1(x)))
+        out = self.bn2(self.conv2(out))
+        identity = x if self.downsample is None else self.downsample(x)
+        return F.relu(out + identity)
+
+
+class Bottleneck(nn.Module):
+    expansion = 4
+
+    def __init__(self, inplanes: int, planes: int, stride: int = 1, downsample: bool = False,
+                 bias: bool = False):
+        super().__init__()
+        out_ch = planes * self.expansion
+        self.conv1 = conv1x1(inplanes, planes, bias=bias)
+        self.bn1 = FrozenBatchNorm(planes)
+        self.conv2 = conv3x3(planes, planes, stride, bias=bias)
+        self.bn2 = FrozenBatchNorm(planes)
+        self.conv3 = conv1x1(planes, out_ch, bias=bias)
+        self.bn3 = FrozenBatchNorm(out_ch)
+        self.downsample = (
+            nn.Sequential(conv1x1(inplanes, out_ch, stride, bias=bias), FrozenBatchNorm(out_ch))
+            if downsample else None
+        )
+
+    def forward(self, x):
+        out = F.relu(self.bn1(self.conv1(x)))
+        out = F.relu(self.bn2(self.conv2(out)))
+        out = self.bn3(self.conv3(out))
+        identity = x if self.downsample is None else self.downsample(x)
+        return F.relu(out + identity)
+
+
+class StemConv(nn.Conv2d):
+    """7x7/2 stem conv that can also apply its input-channel slices apart.
+
+    ``frame_part`` (first 3 channels + bias) depends only on the frame, so
+    the engine computes it once per frame; ``mask_part`` (remaining
+    channels, no bias) is the only stem work left per object. The split is
+    exact up to one partial-sum reordering.
+    """
+
+    def __init__(self, in_channels: int, bias: bool):
+        super().__init__(in_channels, 64, 7, stride=2, padding=3, bias=bias)
+
+    def frame_part(self, frame):
+        return F.conv2d(frame, self.weight[:, :3], self.bias, stride=2, padding=3)
+
+    def mask_part(self, masks):
+        return F.conv2d(masks, self.weight[:, 3:], None, stride=2, padding=3)
+
+
+def make_stages(backbone: str, bias: bool) -> List[nn.Sequential]:
+    """The three residual stages (layer1..layer3) of a trunk."""
+    kind, layers = BACKBONE_LAYERS[backbone]
+    block = BasicBlock if kind == "basic" else Bottleneck
+    stages = []
+    inplanes, planes = 64, 64
+    for i, n_blocks in enumerate(layers):
+        stride = 1 if i == 0 else 2
+        blocks = []
+        for b in range(n_blocks):
+            first = b == 0
+            down = first and (stride != 1 or inplanes != planes * block.expansion)
+            blocks.append(block(inplanes, planes, stride if first else 1, down, bias))
+            inplanes = planes * block.expansion
+        stages.append(nn.Sequential(*blocks))
+        planes *= 2
+    return stages
+
+
+def stem_rest(bn1: FrozenBatchNorm, conv1_out: torch.Tensor) -> torch.Tensor:
+    """bn -> relu -> 3x3/2 max pool (padding 1) on a conv1 output."""
+    return F.max_pool2d(F.relu(bn1(conv1_out)), 3, stride=2, padding=1)
+
+
+def run_stages(x: torch.Tensor, stages: Sequence[nn.Module]):
+    """Residual stages -> (f16, f8, f4)."""
+    f4 = stages[0](x)
+    f8 = stages[1](f4)
+    f16 = stages[2](f8)
+    return f16, f8, f4
