@@ -1,5 +1,6 @@
-// Shared pieces of the port's kernels: block shape, warp reductions and the
-// FP32 register-tiled block GEMM that both kernels build on.
+// Shared pieces of the EM loop kernel (em_loop.cu): block shape, warp
+// reductions and the FP32 register-tiled block GEMM it builds on. The memory
+// read (read_memory.cu) runs on the tensor cores instead (mma_tf32.cuh).
 //
 // A block of 256 threads computes a 32 x 128 output tile per pass. Thread
 // (tr, tc) = (tid / 32, tid % 32) owns rows 4*tr .. 4*tr+3 and columns

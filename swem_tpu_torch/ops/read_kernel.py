@@ -2,12 +2,13 @@
 
 Counterpart of ``swem_tpu/ops/read_pallas.py`` (the kernel ``_read_kernel``)
 and of the affinity/softmax/value-read part of
-``swem_tpu/models/em.py::read_memory``. ``read_affinity`` takes the plain
-PyTorch version for a CPU tensor and launches ``csrc/read_memory.cu`` for a
-CUDA tensor; there is no other route. The l2-normalization of the keys stays
-a PyTorch op in front of both, as it stays outside the TPU kernel. The source
-note in ``csrc/read_memory.cu`` says what bounds the kernel and how it is
-built.
+``swem_tpu/models/em.py::read_memory``. ``read_affinity`` is the
+l2-normalization of the keys (PyTorch ops, outside the kernel as they are
+outside the TPU kernel) followed by ``read_normalized``, which takes the
+plain PyTorch version for a CPU tensor and launches ``csrc/read_memory.cu``
+(tensor cores, 3xTF32) for a CUDA tensor; there is no other route. The
+source note in ``csrc/read_memory.cu`` says what bounds the kernel and how
+it is built.
 """
 
 from __future__ import annotations
@@ -46,33 +47,41 @@ def _lib():
     return fn
 
 
-def read_affinity(qk: torch.Tensor, mk: torch.Tensor, mv: torch.Tensor,
-                  base_valid: torch.Tensor, *, tau: float
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Affinity + masked joint softmax + value read on raw keys.
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """Contiguous, starting on a 16-byte boundary (the kernel's cp.async copies)."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
 
-    qk (B,P,Ck); mk (B,N,2,Ck,Lm); mv (B,N,2,Cv,Lm) float32; base_valid
-    (B,N,2,Lm) bool -> (mem_out (B,N,P,Cv), exp_aff (B,N,2,Lm,P)). A CPU
-    tensor takes the plain version; a CUDA tensor launches the kernel or
-    raises.
+
+def read_normalized(qk: torch.Tensor, mk: torch.Tensor, mv: torch.Tensor,
+                    base_valid: torch.Tensor, *, tau: float
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Affinity + masked joint softmax + value read on l2-normalized keys.
+
+    qk (B,P,Ck) and mk (B,N,2,Ck,Lm) l2-normalized; mv (B,N,2,Cv,Lm) float32;
+    base_valid (B,N,2,Lm) bool -> (mem_out (B,N,P,Cv), exp_aff (B,N,2,Lm,P)).
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    or raises. The kernel takes Ck and Lm divisible by 4 and 2 * Lm <= 1024.
     """
-    qk = l2norm(qk, -1)
-    mk = l2norm(mk, -2)
     if qk.device.type == "cpu":
         return read_plain(qk, mk, mv, base_valid, tau=tau)
     B, P, Ck = qk.shape
     N, Lm, Cv = mk.shape[1], mk.shape[-1], mv.shape[3]
     expect = {"qk": ((B, P, Ck), torch.float32), "mk": ((B, N, 2, Ck, Lm), torch.float32),
               "mv": ((B, N, 2, Cv, Lm), torch.float32), "base_valid": ((B, N, 2, Lm), torch.bool)}
+    if Ck % 4 or Lm % 4 or not 0 < 2 * Lm <= 1024:
+        raise ValueError(f"read_normalized: the kernel takes Ck and Lm divisible by 4 and "
+                         f"2 * Lm <= 1024, got Ck={Ck}, Lm={Lm}")
     for name, t in zip(expect, (qk, mk, mv, base_valid)):
         shape, dtype = expect[name]
         if t.device != qk.device or t.device.type != "cuda":
-            raise ValueError(f"read_affinity: {name} is on {t.device}, expected {qk.device}")
+            raise ValueError(f"read_normalized: {name} is on {t.device}, expected {qk.device}")
         if t.dtype != dtype:
-            raise TypeError(f"read_affinity: {name} is {t.dtype}, expected {dtype}")
+            raise TypeError(f"read_normalized: {name} is {t.dtype}, expected {dtype}")
         if tuple(t.shape) != shape:
-            raise ValueError(f"read_affinity: {name} has shape {tuple(t.shape)}, expected {shape}")
-    qk, mk, mv = (t.contiguous() for t in (qk, mk, mv))
+            raise ValueError(
+                f"read_normalized: {name} has shape {tuple(t.shape)}, expected {shape}")
+    qk, mk, mv = (_aligned(t) for t in (qk, mk, mv))
     valid = base_valid.contiguous().view(torch.uint8)
     mem_out = torch.empty((B, N, P, Cv), device=qk.device)
     exp_aff = torch.empty((B, N, 2, Lm, P), device=qk.device)
@@ -86,3 +95,10 @@ def read_affinity(qk: torch.Tensor, mk: torch.Tensor, mv: torch.Tensor,
     global launches
     launches += 1
     return mem_out, exp_aff
+
+
+def read_affinity(qk: torch.Tensor, mk: torch.Tensor, mv: torch.Tensor,
+                  base_valid: torch.Tensor, *, tau: float
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``read_normalized`` on raw keys: qk (B,P,Ck), mk (B,N,2,Ck,Lm)."""
+    return read_normalized(l2norm(qk, -1), l2norm(mk, -2), mv, base_valid, tau=tau)
