@@ -10,8 +10,15 @@ Needs one CUDA device and the CUDA toolkit; imports nothing of JAX or of
    matrix products (the reference computes in full float32).
 1. build: compile ``swem_tpu_torch/csrc/*.cu`` for sm_90a, one nvcc each,
    in parallel.
-2. K1 (EM loop kernel) against its plain PyTorch version on the card, at the
-   flagship shape (1 and 4 rounds) and a ragged shape with an empty slot.
+2. K1 (EM loop kernel: one cooperative launch, tensor cores in 3xTF32)
+   against its plain version run in float64 on the same inputs, at the
+   flagship shape (1 and 4 rounds), a ragged shape with an empty slot, L =
+   256, and N = 8 at P = 3600 (more tile items than CTAs); a second run must
+   give the same bits. Each case prints the worst error over its limit for
+   the kernel and for the float32 plain loop. ``ms`` times the kernel alone
+   at the flagship shape, 4 rounds; its 8 products as ``torch.matmul`` calls
+   are timed beside it for information (no one PyTorch call computes the
+   loop, so ``library_ms`` is null).
 3. K2 (fused memory read kernel, tensor cores in 3xTF32) against its plain
    version run in float64 on the same normalized keys, at the flagship shape,
    two ragged ones and one with Lm = 512 (the kernel's 32-pixel tiling),
@@ -28,7 +35,8 @@ Needs one CUDA device and the CUDA toolkit; imports nothing of JAX or of
    objects, output 480x854. Each kernel must have been launched exactly T-1
    times. The first 3 frames are rerun on the CPU (plain versions) and the
    index maps compared. One more run under ``torch.profiler`` prints where
-   the device time goes and the device's idle share.
+   the device time goes (by group, every kernel of the port's two groups
+   with its launches) and the device's idle share.
 5. one JSON line with every kernel's numbers, then the card line, then the
    final ``{"ok": true, ...}`` line.
 """
@@ -127,7 +135,7 @@ def em_inputs(rng, B, N, P, Ck, L, x_std, empty_slot=None):
 
 
 def check_em(peaks) -> dict:
-    """K1 against its plain version; returns the kernel's JSON entry."""
+    """K1 against its plain version in float64; returns the kernel's JSON entry."""
     import torch
     from swem_tpu_torch.ops import em_kernel
 
@@ -137,39 +145,68 @@ def check_em(peaks) -> dict:
     # rounds tau = 0.05 makes the loop chaotic, so summation-order ulps grow.
     # Flagship x has std 0.3 (|x| about 3.4): with std 1 even float32 against
     # float64 of the same plain code leaves these bounds at 4 rounds.
+    # (B, N, P, Ck, L): flagship; ragged P with narrow Ck and L and an empty
+    # slot; the reference's default L = 256; more tile items than CTAs.
     cases = [
         ("flagship 1 round", (1, 2, 1620, 128, 128), 0.3, 1, None, (1e-4, 1e-5)),
         ("flagship 4 rounds", (1, 2, 1620, 128, 128), 0.3, 4, None, (5e-2, 1e-2)),
         ("ragged, empty slot", (2, 8, 130, 16, 8), 1.0, 4, 5, (5e-2, 1e-2)),
+        ("flagship L=256", (1, 2, 1620, 128, 256), 0.3, 4, None, (5e-2, 1e-2)),
+        ("N=8 P=3600", (1, 8, 3600, 128, 128), 0.3, 4, None, (5e-2, 1e-2)),
     ]
     max_err = 0.0
     for name, shape, x_std, n_iters, empty, (rtol, atol) in cases:
-        x, masks, kappa0, zita0 = em_inputs(rng, *shape, x_std, empty)
-        got = em_kernel.em_loop(x, masks, kappa0, zita0, n_iters=n_iters, tau=tau)
-        ref = em_kernel.em_loop_plain(x, masks, kappa0, zita0, n_iters=n_iters, tau=tau)
+        inputs = em_inputs(rng, *shape, x_std, empty)
+        got = em_kernel.em_loop(*inputs, n_iters=n_iters, tau=tau)
+        again = em_kernel.em_loop(*inputs, n_iters=n_iters, tau=tau)
+        # float64 referee; the float32 plain loop beside it shows the limit's margin
+        ref = em_kernel.em_loop_plain(*(t.double() for t in inputs), n_iters=n_iters, tau=tau)
+        plain32 = em_kernel.em_loop_plain(*inputs, n_iters=n_iters, tau=tau)
         torch.cuda.synchronize()
         errs = [compare(f"K1 {name} {o}", g, r, rtol, atol)
                 for o, g, r in zip(("z", "kappa", "zita"), got, ref)]
         if empty is not None:
-            compare(f"K1 {name} empty slot kappa unchanged", got[1][:, empty], kappa0[:, empty],
+            compare(f"K1 {name} empty slot kappa unchanged", got[1][:, empty], inputs[2][:, empty],
                     1e-5, 1e-6)
-        print(f"K1 {name}: max abs err z {errs[0]:.3e} kappa {errs[1]:.3e} zita {errs[2]:.3e}",
-              flush=True)
-        if name == "flagship 4 rounds":
-            max_err = max(errs)
-            B, N, P, Ck, L = shape
-            ms = cuda_ms(lambda: em_kernel.em_loop(x, masks, kappa0, zita0, n_iters=4, tau=tau))
-            plain = cuda_ms(lambda: em_kernel.em_loop_plain(x, masks, kappa0, zita0,
-                                                            n_iters=4, tau=tau))
-            gemm = 2.0 * P * Ck * 2 * N * L  # one (P,Ck)@(Ck,N*2*L) product
-            # E and M each round; the W step's product is the next E step's
-            # scaled by 1/|x| per pixel, so the least work has no third GEMM
-            flops = gemm * 2 * n_iters
-            nbytes = 4.0 * (x.numel() + masks.numel() + kappa0.numel() + zita0.numel()
-                            + sum(t.numel() for t in got))
-            b_ms, b_by = bound_ms(flops, nbytes, peaks)
-    print(f"K1 time: kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by})",
-          flush=True)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            fail(f"K1 {name}: two runs on the same inputs gave different bits")
+        ratios = [worst_ratio(g, r, rtol, atol) for g, r in zip(got + plain32, ref + ref)]
+        max_err = max(max_err, *errs)
+        print(f"K1 {name}: max abs err vs float64 z {errs[0]:.3e} kappa {errs[1]:.3e} "
+              f"zita {errs[2]:.3e}; worst err/limit (z, kappa, zita) kernel {ratios[0]:.3f} "
+              f"{ratios[1]:.3f} {ratios[2]:.3f}, float32 plain {ratios[3]:.3f} {ratios[4]:.3f} "
+              f"{ratios[5]:.3f}; rerun bit-identical", flush=True)
+    B, N, P, Ck, L = cases[1][1]
+    n_iters = 4
+    x, masks, kappa0, zita0 = em_inputs(rng, B, N, P, Ck, L, 0.3)
+    ms = cuda_ms(lambda: em_kernel.em_loop(x, masks, kappa0, zita0, n_iters=n_iters, tau=tau))
+    plain = cuda_ms(lambda: em_kernel.em_loop_plain(x, masks, kappa0, zita0, n_iters=n_iters,
+                                                    tau=tau))
+    # information only: the loop's 8 products alone as torch.matmul calls (TF32 off)
+    k_all = kappa0.permute(0, 3, 1, 2, 4).reshape(B, Ck, N * 2 * L)
+    z_all = torch.rand((B, P, N * 2 * L), device="cuda")
+    xt = x.transpose(1, 2)
+
+    def products():
+        for _ in range(n_iters):
+            torch.matmul(x, k_all)
+            torch.matmul(xt, z_all)
+
+    matmul_ms = cuda_ms(products)
+    gemm = 2.0 * P * Ck * 2 * N * L  # one (P,Ck)@(Ck,N*2*L) product
+    # E and M each round; the W step's product is the next E step's scaled by
+    # 1/|x| per pixel, so the least work has no third GEMM
+    flops = gemm * 2 * n_iters
+    nbytes = 4.0 * (x.numel() + masks.numel() + kappa0.numel() + zita0.numel()
+                    + B * N * 2 * P * L + kappa0.numel() + zita0.numel())
+    # the kernel runs its products as 3xTF32 on the tensor cores: the route's
+    # bound is three TF32 products each; the FP32 CUDA-core bound beside it
+    b_ms, b_by = bound_ms(3 * flops, nbytes, (peaks[2], peaks[1]))
+    fp32_ms, fp32_by = bound_ms(flops, nbytes, peaks)
+    print(f"K1 time: kernel {ms:.4f} ms (one launch, {2 * n_iters} grid barriers), plain "
+          f"{plain:.4f} ms, its 8 products as torch.matmul {matmul_ms:.4f} ms; bound {b_ms:.4f} "
+          f"ms ({b_by}, 3xTF32 on the tensor cores), FP32 bound {fp32_ms:.4f} ms ({fp32_by}, "
+          f"CUDA cores), bytes {nbytes / peaks[1] * 1e3:.4f} ms", flush=True)
     return {"name": "em_loop", "route": "cuda", "source": "swem_tpu_torch/csrc/em_loop.cu",
             "replaces": "swem_tpu/ops/em_pallas.py:56 (_em_kernel, pallas_call at :196)",
             "launches": None, "max_abs_err": max_err, "ms": ms, "plain_ms": plain,
@@ -358,10 +395,12 @@ def profile_main_path(model, frames, init_mask, active) -> None:
     from torch.profiler import ProfilerActivity, profile
     from swem_tpu_torch import engine
 
-    groups = (("em_loop kernel", ("em_e_kernel", "em_m_partial", "em_m_final")),
+    # cuBLAS's GEMMs are named *xmma_gemm* too: only these keys mark a convolution
+    groups = (("em_loop kernel", ("em_loop_kernel",)),
               ("read_memory kernel", ("read_kernel",)),
-              ("convolution", ("conv", "cudnn", "fprop", "dgrad", "xmma", "implicit")),
+              ("convolution", ("fprop", "dgrad", "wgrad", "implicit", "conv", "cudnn")),
               ("matmul", ("gemm", "gemv")))
+    port_groups = ("em_loop kernel", "read_memory kernel")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -373,14 +412,16 @@ def profile_main_path(model, frames, init_mask, active) -> None:
     if not kernels:
         print("profile: the profiler recorded no device time", flush=True)
         return
-    by_group, by_name, spans = {}, {}, []
+    by_group, by_name, spans = {}, {}, []  # by_name: name -> [group, device us, count]
     for e in kernels:
         dur = e.time_range.end - e.time_range.start
         spans.append((e.time_range.start, e.time_range.end))
         name = e.name.lower()
         group = next((g for g, keys in groups if any(k in name for k in keys)), "other")
         by_group[group] = by_group.get(group, 0.0) + dur
-        by_name[e.name[:60]] = by_name.get(e.name[:60], 0.0) + dur
+        entry = by_name.setdefault(e.name[:90], [group, 0.0, 0])
+        entry[1] += dur
+        entry[2] += 1
     busy, end = 0.0, -float("inf")  # union of kernel intervals
     for s, e in sorted(spans):
         busy += max(0.0, e - max(s, end))
@@ -390,8 +431,10 @@ def profile_main_path(model, frames, init_mask, active) -> None:
           f"device busy {busy / 1e3:.3f} ms, idle share {1 - busy / wall_us:.4f}", flush=True)
     for g, us in sorted(by_group.items(), key=lambda kv: -kv[1]):
         print(f"  {g}: {us / 1e3:.3f} ms ({us / total:.4f} of device time)", flush=True)
-    for n, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
-        print(f"  top kernel {us / 1e3:.3f} ms: {n}", flush=True)
+        # every kernel of the port's own groups; the three largest of the others
+        names = sorted(((n, v) for n, v in by_name.items() if v[0] == g), key=lambda kv: -kv[1][1])
+        for n, (_, us_n, count) in names if g in port_groups else names[:3]:
+            print(f"    {us_n / 1e3:.3f} ms, {count} launches: {n}", flush=True)
 
 
 def main() -> int:
