@@ -6,8 +6,10 @@
 Needs one CUDA device and the CUDA toolkit; imports nothing of JAX or of
 ``swem_tpu``. Phases, each fatal on failure:
 
-0. setup: the card's name and power limit; TF32 off for convolutions and
-   matrix products (the reference computes in full float32).
+0. setup: the card's name and power limit, and PyTorch's TF32 flags as
+   found (its defaults, left in force: the engine turns TF32 off in its own
+   scope, ``config.full_float32``, and the kernel phases' float32 yardsticks
+   run inside that scope too).
 1. build: compile ``swem_tpu_torch/csrc/*.cu`` for sm_90a, one nvcc each,
    in parallel.
 2. K1 (EM loop kernel: one cooperative launch, tensor cores in 3xTF32)
@@ -30,21 +32,31 @@ Needs one CUDA device and the CUDA toolkit; imports nothing of JAX or of
    (normalization + kernel); ``library_ms`` times
    ``F.scaled_dot_product_attention`` on the same normalized keys (never
    used by the port). Times are device times (``cuda_ms``).
-4. main path: ``engine.run_video`` with the flagship ``ModelConfig()`` and
-   seeded random weights on a synthetic 480x864 video of T=10 frames, two
-   objects, output 480x854. Each kernel must have been launched exactly T-1
-   times. The first 3 frames are rerun on the CPU (plain versions) and the
-   index maps compared. One more run under ``torch.profiler`` prints where
-   the device time goes (by group, every kernel of the port's two groups
-   with its launches) and the device's idle share.
-5. one JSON line with every kernel's numbers, then the card line, then the
-   final ``{"ok": true, ...}`` line.
+4. float32 main path: ``engine.run_video`` with the flagship
+   ``ModelConfig()`` and seeded random weights on a synthetic 480x864 video
+   of T=10 frames, two objects, output 480x854. A warm-up pass runs with a
+   forward hook on every module that fails the run on a non-finite output
+   or on a TF32 flag that reads True inside a forward. Each kernel must have
+   been launched exactly T-1 times in the timed run. The first 3 frames are
+   rerun on the CPU (plain versions) and the index maps compared. One more
+   run under ``torch.profiler`` prints where the device time goes (by
+   group, every kernel of the port's two groups with its launches) and the
+   device's idle share.
+5. bfloat16 main path, the configuration users run: the same weights and
+   video with ``ModelConfig(dtype="bfloat16")``, the same hooks and launch
+   counts, the memory float32. Its index maps are held against the float32
+   run's by the JAX package's own bf16-versus-f32 bounds
+   (``tests/test_bf16_margin.py``): under 1% of pixels over the video, and
+   the last 3 frames' share at most 3x the first 3 frames' + 1e-4. Then its
+   profile.
+6. one JSON line with every kernel's numbers (``launches`` from the
+   bfloat16 run, ``launches_f32`` from the float32 one), then the card line,
+   then the final ``{"ok": true, ...}`` line.
 """
 
 from __future__ import annotations
 
 import json
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -66,9 +78,11 @@ def fail(msg: str) -> None:
 
 
 def card_line() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
+    """The card's ``nvidia-smi`` name and power limit."""
+    import torch
+    from swem_tpu_torch.bench import device_line
+
+    return device_line(torch.device("cuda", 0))
 
 
 def cuda_ms(fn, reps: int = 25, warmup: int = 3) -> float:
@@ -303,52 +317,45 @@ def check_read(peaks) -> dict:
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": library, "wrapper_ms": wrapper}
 
 
-def synthetic_video(T: int, n_objs: int):
-    """Frames (T,1,480,864,3) in [0,1] and the init mask at 480x854 (two boxes)."""
-    rng = np.random.default_rng(0)
-    frames = rng.random((T, 1) + IN_SIZE + (3,)).astype(np.float32)
-    init_mask = np.zeros((1,) + OUT_SIZE + (n_objs + 1,), np.float32)
-    init_mask[..., 0] = 1.0
-    for ch, (y0, y1, x0, x1) in ((1, (100, 220, 150, 330)), (2, (260, 400, 500, 700))):
-        init_mask[:, y0:y1, x0:x1, ch] = 1.0
-        init_mask[:, y0:y1, x0:x1, 0] = 0.0
-    return frames, init_mask
-
-
-def main_path(card: str) -> dict:
-    """Flagship run_video on the card; returns the kernels' launch counts."""
+def drive(model, frames, init_mask, active, card: str, label: str):
+    """One main path: a checked warm-up pass, then the timed ``run_video``
+    with every launch count set to 0 just before it and read just after.
+    Returns (preds, launches)."""
     import torch
     from swem_tpu_torch import engine
-    from swem_tpu_torch.config import ModelConfig
-    from swem_tpu_torch.models.swem import SWEM
     from swem_tpu_torch.ops import em_kernel, read_kernel
 
-    cfg = ModelConfig()
-    model = SWEM(cfg).init_weights(0)  # device None: CUDA
-    frames_np, mask_np = synthetic_video(T_VIDEO, cfg.max_objs)
-    frames = torch.from_numpy(frames_np).cuda()
-    init_mask = torch.from_numpy(mask_np).cuda()
-    active = torch.ones((1, cfg.max_objs), dtype=torch.bool, device="cuda")
+    # warm-up pass: every module's output finite, and TF32 off inside every
+    # forward with PyTorch's default flags in force outside
+    bad, tf32, calls = [], [], [0]
 
-    # warm-up pass with every module output and the final memory checked finite
-    bad = []
-
-    def finite_hook(mod, _inp, out):
+    def guard_hook(mod, _inp, out):
+        calls[0] += 1
+        if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
+            tf32.append(type(mod).__name__)
         outs = out if isinstance(out, tuple) else (out,)
         if any(isinstance(o, torch.Tensor) and not bool(torch.isfinite(o).all()) for o in outs):
             bad.append(type(mod).__name__)
 
-    hooks = [m.register_forward_hook(finite_hook) for m in model.modules()]
+    hooks = [m.register_forward_hook(guard_hook) for m in model.modules()]
     mem = engine.init_memory(model, torch.Generator().manual_seed(1), frames[0], init_mask, active)
     mem, _ = engine.run_chunk(model, mem, frames[1:], active, OUT_SIZE)
     for h in hooks:
         h.remove()
     for bank in (mem.first, mem.update):
         for t in (bank.kappa, bank.nu, bank.zita):
+            if t.dtype != torch.float32:
+                fail(f"{label} main path: the memory is {t.dtype}, expected float32")
             if not bool(torch.isfinite(t).all()):
                 bad.append("memory")
     if bad:
-        fail(f"main path: non-finite values in {sorted(set(bad))}")
+        fail(f"{label} main path: non-finite values in {sorted(set(bad))}")
+    if tf32 or not calls[0]:
+        fail(f"{label} main path: TF32 on inside {sorted(set(tf32))} ({calls[0]} forwards)")
+    print(f"{label} main path: TF32 off in all {calls[0]} module forwards (outside: "
+          f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}, "
+          f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}); every output "
+          f"finite; memory float32", flush=True)
 
     em_kernel.launches = read_kernel.launches = 0
     torch.cuda.synchronize()
@@ -359,14 +366,35 @@ def main_path(card: str) -> dict:
     dt = time.perf_counter() - t0
     launches = {"em_loop": em_kernel.launches, "read_memory": read_kernel.launches}
     if preds.shape != (T_VIDEO - 1, 1) + OUT_SIZE or preds.dtype != torch.uint8:
-        fail(f"main path: preds {tuple(preds.shape)} {preds.dtype}")
-    if int(preds.max()) > cfg.max_objs:
-        fail("main path: index out of range")
+        fail(f"{label} main path: preds {tuple(preds.shape)} {preds.dtype}")
+    if int(preds.max()) > model.cfg.max_objs:
+        fail(f"{label} main path: index out of range")
     for name, n in launches.items():
         if n != T_VIDEO - 1:
-            fail(f"main path: kernel {name} launched {n} times, expected {T_VIDEO - 1}")
-    print(f"main path: run_video T={T_VIDEO} in {dt:.3f} s = {T_VIDEO / dt:.2f} frames/s "
+            fail(f"{label} main path: kernel {name} launched {n} times, expected {T_VIDEO - 1}")
+    print(f"{label} main path: run_video T={T_VIDEO} in {dt:.3f} s = {T_VIDEO / dt:.2f} frames/s "
           f"(smoke number, not a benchmark) on {card}; launches {launches}", flush=True)
+    return preds, launches
+
+
+def main_path(card: str) -> tuple:
+    """Flagship run_video on the card in float32, then in bfloat16; returns
+    the kernels' launch counts of each run."""
+    import torch
+    from swem_tpu_torch import engine
+    from swem_tpu_torch.bench import synthetic_video
+    from swem_tpu_torch.config import ModelConfig
+    from swem_tpu_torch.models.swem import SWEM
+    from swem_tpu_torch.ops import em_kernel, read_kernel
+
+    cfg = ModelConfig()
+    model = SWEM(cfg).init_weights(0)  # device None: CUDA
+    # the benchmark's video (two boxes), T = 10
+    frames_np, mask_np = synthetic_video(T_VIDEO, IN_SIZE, OUT_SIZE, cfg.max_objs)
+    frames = torch.from_numpy(frames_np).cuda()
+    init_mask = torch.from_numpy(mask_np).cuda()
+    active = torch.ones((1, cfg.max_objs), dtype=torch.bool, device="cuda")
+    preds, launches = drive(model, frames, init_mask, active, card, "float32")
 
     # the same weights and draw on the CPU, plain versions, first 3 frames
     cpu = SWEM(cfg, device="cpu")
@@ -383,11 +411,28 @@ def main_path(card: str) -> dict:
         fail(f"main path: only {same:.4f} of index pixels agree with the CPU run")
     if em_kernel.launches != T_VIDEO - 1 or read_kernel.launches != T_VIDEO - 1:
         fail("the CPU run must not launch kernels")
-    profile_main_path(model, frames, init_mask, active)
-    return launches
+    profile_main_path(model, frames, init_mask, active, "float32")
+
+    # the configuration users run: the same seeded weights at bfloat16
+    bf16 = SWEM(ModelConfig(dtype="bfloat16")).init_weights(0)
+    preds16, launches16 = drive(bf16, frames, init_mask, active, card, "bfloat16")
+    flip = (preds16 != preds).flatten(1).double().mean(dim=1).cpu().numpy()  # per frame
+    early, late = float(flip[:3].mean()), float(flip[-3:].mean())
+    print(f"bfloat16 against float32 on the card: index pixels that differ per frame "
+          f"{' '.join(f'{f:.6f}' for f in flip)}; over the video {flip.mean():.6f}, first 3 "
+          f"frames {early:.6f}, last 3 {late:.6f}; per-label pixels bf16 {counts(preds16.cpu())}",
+          flush=True)
+    profile_main_path(bf16, frames, init_mask, active, "bfloat16")
+    # the JAX package's own bf16-versus-f32 bounds (tests/test_bf16_margin.py)
+    if flip.mean() >= 0.01:
+        fail(f"bfloat16 main path: {flip.mean():.4f} of index pixels differ from float32")
+    if late > 3.0 * early + 1e-4:
+        fail(f"bfloat16 main path: the disagreement grows through the video: first 3 frames "
+             f"{early:.4f}, last 3 {late:.4f}")
+    return launches16, launches
 
 
-def profile_main_path(model, frames, init_mask, active) -> None:
+def profile_main_path(model, frames, init_mask, active, label: str) -> None:
     """Where the main path's time goes: one more ``run_video`` under
     ``torch.profiler``, device time summed by kernel group, and the share of
     the run's wall time in which no kernel ran on the card."""
@@ -410,7 +455,7 @@ def profile_main_path(model, frames, init_mask, active) -> None:
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kernels:
-        print("profile: the profiler recorded no device time", flush=True)
+        print(f"profile ({label}): the profiler recorded no device time", flush=True)
         return
     by_group, by_name, spans = {}, {}, []  # by_name: name -> [group, device us, count]
     for e in kernels:
@@ -427,8 +472,9 @@ def profile_main_path(model, frames, init_mask, active) -> None:
         busy += max(0.0, e - max(s, end))
         end = max(end, e)
     total = sum(by_group.values())
-    print(f"profile: run_video T={T_VIDEO} wall {wall_us / 1e3:.3f} ms, {len(kernels)} kernels, "
-          f"device busy {busy / 1e3:.3f} ms, idle share {1 - busy / wall_us:.4f}", flush=True)
+    print(f"profile ({label}): run_video T={T_VIDEO} wall {wall_us / 1e3:.3f} ms, "
+          f"{len(kernels)} kernels, device busy {busy / 1e3:.3f} ms, idle share "
+          f"{1 - busy / wall_us:.4f}", flush=True)
     for g, us in sorted(by_group.items(), key=lambda kv: -kv[1]):
         print(f"  {g}: {us / 1e3:.3f} ms ({us / total:.4f} of device time)", flush=True)
         # every kernel of the port's own groups; the three largest of the others
@@ -447,13 +493,15 @@ def main() -> int:
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
+    from swem_tpu_torch.config import full_float32
     from swem_tpu_torch.ops import build
 
+    t_start = time.perf_counter()
     card = card_line()
-    print(f"card: {card}", flush=True)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    print("TF32 off: cudnn.allow_tf32=False, cuda.matmul.allow_tf32=False", flush=True)
+    print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
+    print(f"TF32 flags as found (left in force): cudnn.allow_tf32="
+          f"{torch.backends.cudnn.allow_tf32}, cuda.matmul.allow_tf32="
+          f"{torch.backends.cuda.matmul.allow_tf32}", flush=True)
     peaks = PEAKS["pcie" if "PCIe" in card else "sxm"]
 
     t0 = time.perf_counter()
@@ -465,10 +513,13 @@ def main() -> int:
             if any(w in line for w in ("entry function", "registers", "spill", "error")):
                 print(f"  {name}: {line.strip()}", flush=True)
 
-    entries = [check_em(peaks), check_read(peaks)]
-    launches = main_path(card)
+    with full_float32():  # the float32 yardsticks: plain versions, torch.matmul, SDPA
+        entries = [check_em(peaks), check_read(peaks)]
+    launches, launches_f32 = main_path(card)
     for e in entries:
         e["launches"] = launches[e["name"]]
+        e["launches_f32"] = launches_f32[e["name"]]
+    print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -81,7 +81,7 @@ def main() -> int:
     import chip_smoke
     from swem_tpu_torch.ops import em_kernel
 
-    torch.backends.cuda.matmul.allow_tf32 = False
+    # the only plain loop here is the float64 referee: no TF32 flag applies
     print(f"card: {chip_smoke.card_line()}", flush=True)
     libs = build_all(args.sources, args.cycles)
     names = list(libs)

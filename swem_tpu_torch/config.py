@@ -7,10 +7,15 @@ through their plain PyTorch versions.
 
 from __future__ import annotations
 
+from contextlib import contextmanager
 from dataclasses import dataclass
-from typing import Optional
+from typing import Iterator, Optional
 
 import torch
+
+# the conv towers' compute dtypes; the JAX package's "float64" is a
+# test-only oracle there and is not ported
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 @dataclass(frozen=True)
@@ -30,10 +35,44 @@ class ModelConfig:
     # padded to it; inactive slots carry all-zero masks)
     max_objs: int = 2
     mdim: int = 256  # decoder mid channels
+    # compute dtype of the conv towers: 'float32' for parity, 'bfloat16' for
+    # speed; the EM statistics, the memory and both kernels stay float32
+    dtype: str = "float32"
+
+    def __post_init__(self):
+        if self.dtype not in DTYPES:
+            raise ValueError(f"dtype must be one of {sorted(DTYPES)}, got {self.dtype!r}")
 
     @property
     def topl_eff(self) -> int:
         return int(min(self.num_bases, self.topl))
+
+
+def compute_dtype(cfg: ModelConfig) -> torch.dtype:
+    """The conv towers' torch dtype (``swem_tpu.models.swem._dtype_of``)."""
+    return DTYPES[cfg.dtype]
+
+
+@contextmanager
+def full_float32() -> Iterator[None]:
+    """Float32 convolutions and matrix products in full float32, not TF32.
+
+    The same at both compute dtypes: bf16 parts are bf16 by their explicit
+    casts, and the float32 ones (every float32 conv tower, the ``nu`` GEMM,
+    the norms) compute as the JAX package's do at precision HIGHEST.
+    PyTorch's own default runs float32 convolutions in TF32. Scoped: the two
+    flags are set here and put back as found on exit, also after an
+    exception. (``torch.backends.cudnn.flags`` would also reset the CUDA
+    backend's float32 precision setting, which slowed float32 matrix
+    products on the card, inside the scope and after it.)
+    """
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    saved = cudnn.allow_tf32, matmul.allow_tf32
+    cudnn.allow_tf32 = matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        cudnn.allow_tf32, matmul.allow_tf32 = saved
 
 
 def resolve_device(device: Optional[str | torch.device] = None) -> torch.device:

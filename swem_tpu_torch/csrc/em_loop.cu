@@ -58,6 +58,8 @@
 // barriers, and in mma.sync's register operands (each element split there).
 #include <math.h>
 
+#include <mutex>
+
 #include "mma_tf32.cuh"
 
 namespace swem {
@@ -541,6 +543,32 @@ __global__ void __launch_bounds__(kThreads, 1) em_loop_kernel(const Params p) {
 #endif
 }
 
+// CUDA keeps a kernel's attributes per device: each device sets the
+// shared-memory limit once (all of a block's shared memory but the static
+// part, which only the cycle checkpoints use), and every call checks the result
+constexpr int kMaxDevices = 64;
+struct DeviceSetup {
+  std::once_flag once;
+  cudaError_t err = cudaSuccess;
+  int static_smem = 0;
+};
+DeviceSetup device_setup[kMaxDevices];
+
+cudaError_t setup_device(int dev, int* static_smem) {
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  DeviceSetup& s = device_setup[dev];
+  std::call_once(s.once, [&s] {
+    cudaFuncAttributes fa;
+    s.err = cudaFuncGetAttributes(&fa, em_loop_kernel);
+    if (s.err != cudaSuccess) return;
+    s.static_smem = (int)fa.sharedSizeBytes;
+    s.err = cudaFuncSetAttribute(em_loop_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 kMaxSmem - s.static_smem);
+  });
+  *static_smem = s.static_smem;
+  return s.err;
+}
+
 }  // namespace
 }  // namespace swem
 
@@ -554,7 +582,7 @@ extern "C" const char* swem_em_loop_error(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Runs the whole loop on `stream` as one cooperative launch. Shapes: x (B, P,
+// Runs the whole loop on `stream`, on the current device, as one cooperative launch. Shapes: x (B, P,
 // C); masks (B, N, 2, P); kappa0 and kappa (B, N, 2, C, L); zita0 and zita
 // (B, N, 2, L); z (B, N, 2, P, L); scratch khat (B N C 2L floats), part
 // (B N ceil(P / 32) C 2L), zpart (B N ceil(P / 32) 2L); bar one word, 0 before
@@ -567,25 +595,14 @@ extern "C" int swem_em_loop(const float* x, const float* masks, const float* kap
                             int C, int L, int n_iters, float tau, void* stream_ptr) {
   using namespace swem;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  // once per process (all of a block's shared memory but the static part,
-  // which only the cycle checkpoints use); the result is checked on every call
-  static int static_smem = 0;
-  static const cudaError_t attr = [] {
-    cudaFuncAttributes fa;
-    const cudaError_t e = cudaFuncGetAttributes(&fa, em_loop_kernel);
-    if (e != cudaSuccess) return e;
-    static_smem = (int)fa.sharedSizeBytes;
-    return cudaFuncSetAttribute(em_loop_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                kMaxSmem - static_smem);
-  }();
-  if (attr != cudaSuccess) return attr;
+  int dev, static_smem, coop, n_sm, per_sm;
+  cudaError_t err;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = setup_device(dev, &static_smem)) != cudaSuccess) return err;
   if (B < 1 || N < 1 || P < 1 || C < 16 || C % 16 || L < 8 || L % 8 || n_iters < 1)
     return cudaErrorInvalidValue;
   const size_t smem = Smem{C, 2 * L}.bytes();
   if (smem + static_smem > (size_t)kMaxSmem) return cudaErrorInvalidValue;
-  int dev, coop, n_sm, per_sm;
-  cudaError_t err;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
   if ((err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev)) != cudaSuccess)
     return err;
   if (!coop) return cudaErrorNotSupported;

@@ -53,6 +53,8 @@
 // cluster, are the next steps.
 #include <math.h>
 
+#include <mutex>
+
 #include "mma_tf32.cuh"
 
 namespace swem {
@@ -306,14 +308,30 @@ read_kernel(const float* __restrict__ qk, const float* __restrict__ mk,
     }
 }
 
+constexpr int kMaxDevices = 64;
+
+// CUDA keeps a kernel's attributes per device: each instantiation sets its
+// shared-memory limit once on each device, and every call checks the result
+template <int NT>
+cudaError_t setup_device(int dev) {
+  static std::once_flag once[kMaxDevices];
+  static cudaError_t err[kMaxDevices];
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  std::call_once(once[dev], [dev] {
+    err[dev] = cudaFuncSetAttribute(read_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    kMaxSmem);
+  });
+  return err[dev];
+}
+
 template <int NT>
 cudaError_t launch(const float* qk, const float* mk, const float* mv, const unsigned char* valid,
                    float* out, float* exp_aff, int B, int G, int P, int C, int Cv, int Lm,
                    float tau, cudaStream_t stream) {
-  // once per process and instantiation; the result is kept and checked on every call
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      read_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
-  if (attr != cudaSuccess) return attr;
+  int dev;
+  cudaError_t err;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = setup_device<NT>(dev)) != cudaSuccess) return err;
   const size_t smem = Tiling<NT>::smem_bytes(C);
   if (smem > (size_t)kMaxSmem) return cudaErrorInvalidValue;
   constexpr int kRows = Tiling<NT>::kRows;
@@ -326,8 +344,12 @@ cudaError_t launch(const float* qk, const float* mk, const float* mv, const unsi
 }  // namespace
 }  // namespace swem
 
-// Runs the read on `stream`. Returns the first CUDA error, or 0; a shape the
-// kernel does not take returns cudaErrorInvalidValue.
+extern "C" const char* swem_read_memory_error(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// Runs the read on `stream`, on the current device. Returns the first CUDA
+// error, or 0; a shape the kernel does not take returns cudaErrorInvalidValue.
 extern "C" int swem_read_memory(const float* qk, const float* mk, const float* mv,
                                 const unsigned char* valid, float* out, float* exp_aff,
                                 int B, int G, int P, int C, int Cv, int Lm, float tau,

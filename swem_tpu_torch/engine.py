@@ -5,30 +5,46 @@ over frames. Frames are ``(T, B, H, W, 3)`` float in [0, 1], masks
 ``(B, Ho, Wo, N+1)`` one-hot at the output size, ``active`` ``(B, N)`` bool;
 predictions are ``(T-1, B, Ho, Wo)`` uint8 slot indices. Every tensor lives
 on ``model.device``.
+
+Every entry point runs without gradients and under ``full_float32``: float32
+convolutions and matrix products compute in full float32 whatever the
+caller's TF32 flags, at both compute dtypes. The features enter the memory
+as float32.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
 
+from swem_tpu_torch.config import full_float32
 from swem_tpu_torch.models import em
 from swem_tpu_torch.models.swem import SWEM, prepare_em_masks, prepare_em_masks_from_idx
 from swem_tpu_torch.ops.resize import resize
 
 
+def _entry_point(fn):
+    """Run ``fn`` without gradients, under ``full_float32``."""
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        with torch.no_grad(), full_float32():
+            return fn(*args, **kwargs)
+    return run
+
+
 def _flat_qk(qk16):
-    """(B,Ck,h,w) -> (B,P,Ck)."""
-    return qk16.flatten(2).transpose(1, 2)
+    """(B,Ck,h,w) -> (B,P,Ck) float32."""
+    return qk16.flatten(2).transpose(1, 2).float()
 
 
 def _flat_mv(mv16):
-    """(B,N,Cv,h,w) -> (B,N,P,Cv)."""
-    return mv16.flatten(3).transpose(2, 3)
+    """(B,N,Cv,h,w) -> (B,N,P,Cv) float32."""
+    return mv16.flatten(3).transpose(2, 3).float()
 
 
-@torch.no_grad()
+@_entry_point
 def init_memory(model: SWEM, generator: Optional[torch.Generator], frame0, init_mask, active, *,
                 bases: Optional[em.Bases] = None) -> em.VOSMemory:
     """Frame-0 memory: encode frame 0 and its mask, EM-memorize from fresh bases.
@@ -51,7 +67,7 @@ def init_memory(model: SWEM, generator: Optional[torch.Generator], frame0, init_
                        n_iters=cfg.num_em_iters, tau=cfg.em_tau)
 
 
-@torch.no_grad()
+@_entry_point
 def encode_keys_batched(model: SWEM, frames):
     """Key-encode a frame stack in one batched pass: (T,B,H,W,3) -> tuple of (T,B,...)."""
     T, B = frames.shape[:2]
@@ -59,7 +75,7 @@ def encode_keys_batched(model: SWEM, frames):
     return tuple(k.reshape((T, B) + k.shape[1:]) for k in keys)
 
 
-@torch.no_grad()
+@_entry_point
 def step(model: SWEM, mem: em.VOSMemory, frame, active, out_size: Tuple[int, int], *,
          do_memorize: bool = True, inject_mask=None, inject_new=None, keys=None):
     """One inference frame.
@@ -101,7 +117,7 @@ def _memorize_from_pred(model: SWEM, mem, frame, active, qk16, s16, vf, pred_idx
                        n_iters=cfg.num_em_iters, tau=cfg.em_tau)
 
 
-@torch.no_grad()
+@_entry_point
 def run_chunk(model: SWEM, mem: em.VOSMemory, frames, active, out_size: Tuple[int, int], *,
               final: bool = False) -> Tuple[em.VOSMemory, torch.Tensor]:
     """Run a chunk of frames (C,B,H,W,3), carrying the memory -> (mem, preds
@@ -118,7 +134,7 @@ def run_chunk(model: SWEM, mem: em.VOSMemory, frames, active, out_size: Tuple[in
     return mem, torch.stack(preds)
 
 
-@torch.no_grad()
+@_entry_point
 def run_video(model: SWEM, generator: Optional[torch.Generator], frames, init_mask, active,
               out_size: Tuple[int, int], *, bases: Optional[em.Bases] = None) -> torch.Tensor:
     """Whole-video inference: frames (T,B,H,W,3) -> (T-1,B,Ho,Wo) uint8 for

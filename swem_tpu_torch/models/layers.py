@@ -3,6 +3,10 @@
 Attribute names follow the reference SWEM implementation's torch
 ``state_dict`` keys (``ChannelGate.mlp.1``, ``SpatialGate.spatial.conv``,
 ``downsample``), so ``io/jax_import.py`` maps weights by renaming alone.
+
+Every module takes a compute ``dtype``, as the JAX package's flax modules
+do: convolutions and linear layers cast their input, kernel and bias to it
+per call, and the parameters stay float32.
 """
 
 from __future__ import annotations
@@ -14,12 +18,39 @@ from torch import nn
 from swem_tpu_torch.ops.resize import resize_nchw
 
 
-def conv3x3(cin: int, cout: int, stride: int = 1, bias: bool = True) -> nn.Conv2d:
-    return nn.Conv2d(cin, cout, 3, stride=stride, padding=1, bias=bias)
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` that computes in ``compute_dtype`` (flax's ``nn.Conv(dtype=...)``)."""
+
+    def __init__(self, *args, compute_dtype: torch.dtype = torch.float32, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        return self._conv_forward(x.to(dt), self.weight.to(dt),
+                                  None if self.bias is None else self.bias.to(dt))
 
 
-def conv1x1(cin: int, cout: int, stride: int = 1, bias: bool = True) -> nn.Conv2d:
-    return nn.Conv2d(cin, cout, 1, stride=stride, bias=bias)
+class Linear(nn.Linear):
+    """``nn.Linear`` that computes in ``compute_dtype`` (flax's ``nn.Dense(dtype=...)``)."""
+
+    def __init__(self, cin: int, cout: int, compute_dtype: torch.dtype = torch.float32):
+        super().__init__(cin, cout)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+
+
+def conv3x3(cin: int, cout: int, stride: int = 1, bias: bool = True,
+            dtype: torch.dtype = torch.float32) -> Conv2d:
+    return Conv2d(cin, cout, 3, stride=stride, padding=1, bias=bias, compute_dtype=dtype)
+
+
+def conv1x1(cin: int, cout: int, stride: int = 1, bias: bool = True,
+            dtype: torch.dtype = torch.float32) -> Conv2d:
+    return Conv2d(cin, cout, 1, stride=stride, bias=bias, compute_dtype=dtype)
 
 
 class FrozenBatchNorm(nn.Module):
@@ -38,19 +69,20 @@ class FrozenBatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(features))
 
     def forward(self, x):
+        # folded in float32, then cast to x's dtype for the multiply-add
         w = self.weight * torch.rsqrt(self.running_var + self.eps)
         b = self.bias - self.running_mean * w
-        return x * w[:, None, None] + b[:, None, None]
+        return x * w.to(x.dtype)[:, None, None] + b.to(x.dtype)[:, None, None]
 
 
 class ResBlock(nn.Module):
     """Pre-activation residual block: x + conv2(relu(conv1(relu(x))))."""
 
-    def __init__(self, cin: int, cout: int):
+    def __init__(self, cin: int, cout: int, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.conv1 = conv3x3(cin, cout)
-        self.conv2 = conv3x3(cout, cout)
-        self.downsample = conv3x3(cin, cout) if cin != cout else None
+        self.conv1 = conv3x3(cin, cout, dtype=dtype)
+        self.conv2 = conv3x3(cout, cout, dtype=dtype)
+        self.downsample = conv3x3(cin, cout, dtype=dtype) if cin != cout else None
 
     def forward(self, x):
         r = self.conv2(F.relu(self.conv1(F.relu(x))))
@@ -62,11 +94,11 @@ class ResBlock(nn.Module):
 class ChannelGate(nn.Module):
     """CBAM channel attention."""
 
-    def __init__(self, features: int, reduction: int = 16):
+    def __init__(self, features: int, reduction: int = 16, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.mlp = nn.Sequential(
-            nn.Flatten(), nn.Linear(features, features // reduction), nn.ReLU(),
-            nn.Linear(features // reduction, features),
+            nn.Flatten(), Linear(features, features // reduction, dtype), nn.ReLU(),
+            Linear(features // reduction, features, dtype),
         )
 
     def forward(self, x):
@@ -75,9 +107,9 @@ class ChannelGate(nn.Module):
 
 
 class _SpatialConv(nn.Module):
-    def __init__(self):
+    def __init__(self, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.conv = nn.Conv2d(2, 1, 7, padding=3)
+        self.conv = Conv2d(2, 1, 7, padding=3, compute_dtype=dtype)
 
     def forward(self, x):
         return self.conv(x)
@@ -86,9 +118,9 @@ class _SpatialConv(nn.Module):
 class SpatialGate(nn.Module):
     """CBAM spatial attention: 7x7 conv over [max_c, mean_c]."""
 
-    def __init__(self):
+    def __init__(self, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.spatial = _SpatialConv()
+        self.spatial = _SpatialConv(dtype)
 
     def forward(self, x):
         pooled = torch.cat([x.amax(dim=1, keepdim=True), x.mean(dim=1, keepdim=True)], dim=1)
@@ -96,10 +128,10 @@ class SpatialGate(nn.Module):
 
 
 class CBAM(nn.Module):
-    def __init__(self, features: int, reduction: int = 16):
+    def __init__(self, features: int, reduction: int = 16, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.ChannelGate = ChannelGate(features, reduction)
-        self.SpatialGate = SpatialGate()
+        self.ChannelGate = ChannelGate(features, reduction, dtype)
+        self.SpatialGate = SpatialGate(dtype)
 
     def forward(self, x):
         return self.SpatialGate(self.ChannelGate(x))
@@ -108,11 +140,11 @@ class CBAM(nn.Module):
 class FeatureFusionBlock(nn.Module):
     """x = ResBlock(cat[x, f16]); x = ResBlock(x + CBAM(x))."""
 
-    def __init__(self, cin: int, cout: int):
+    def __init__(self, cin: int, cout: int, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.block1 = ResBlock(cin, cout)
-        self.attention = CBAM(cout)
-        self.block2 = ResBlock(cout, cout)
+        self.block1 = ResBlock(cin, cout, dtype)
+        self.attention = CBAM(cout, dtype=dtype)
+        self.block2 = ResBlock(cout, cout, dtype)
 
     def forward(self, x, f16):
         x = self.block1(torch.cat([x, f16], dim=1))
@@ -122,10 +154,10 @@ class FeatureFusionBlock(nn.Module):
 class GLUFusion(nn.Module):
     """out = layer_f(x) * sigmoid(layer_a(x)), 3x3 convs."""
 
-    def __init__(self, cin: int, cout: int):
+    def __init__(self, cin: int, cout: int, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.layer_f = conv3x3(cin, cout)
-        self.layer_a = conv3x3(cin, cout)
+        self.layer_f = conv3x3(cin, cout, dtype=dtype)
+        self.layer_a = conv3x3(cin, cout, dtype=dtype)
 
     def forward(self, x):
         return self.layer_f(x) * torch.sigmoid(self.layer_a(x))
@@ -138,17 +170,18 @@ class UpsampleBlock(nn.Module):
     frame), ``merge`` on the sequential decode state.
     """
 
-    def __init__(self, skip_c: int, up_c: int, out_c: int):
+    def __init__(self, skip_c: int, up_c: int, out_c: int, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.skip_conv = conv3x3(skip_c, up_c)
-        self.out_conv = ResBlock(up_c, out_c)
+        self.skip_conv = conv3x3(skip_c, up_c, dtype=dtype)
+        self.out_conv = ResBlock(up_c, out_c, dtype)
 
     def skip(self, skip_f):
         return self.skip_conv(skip_f)
 
     def merge(self, skip_x, up_f):
+        # resized in its own dtype, then cast to the skip's
         up = resize_nchw(up_f, tuple(skip_x.shape[-2:]), "bilinear")
-        return self.out_conv(skip_x + up)
+        return self.out_conv(skip_x + up.to(skip_x.dtype))
 
     def forward(self, skip_f, up_f):
         return self.merge(self.skip(skip_f), up_f)

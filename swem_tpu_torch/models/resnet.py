@@ -2,7 +2,8 @@
 
 Blocks follow torchvision's attribute names (``conv1``/``bn1``/...,
 ``downsample.0``/``downsample.1``). The key trunk has no conv biases; the
-value trunk (mod_resnet) has a bias on every conv.
+value trunk (mod_resnet) has a bias on every conv. Every conv computes in
+the trunk's ``dtype``; the batch norms fold in float32 and cast to it.
 """
 
 from __future__ import annotations
@@ -27,14 +28,15 @@ class BasicBlock(nn.Module):
     expansion = 1
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1, downsample: bool = False,
-                 bias: bool = False):
+                 bias: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.conv1 = conv3x3(inplanes, planes, stride, bias=bias)
+        self.conv1 = conv3x3(inplanes, planes, stride, bias=bias, dtype=dtype)
         self.bn1 = FrozenBatchNorm(planes)
-        self.conv2 = conv3x3(planes, planes, bias=bias)
+        self.conv2 = conv3x3(planes, planes, bias=bias, dtype=dtype)
         self.bn2 = FrozenBatchNorm(planes)
         self.downsample = (
-            nn.Sequential(conv1x1(inplanes, planes, stride, bias=bias), FrozenBatchNorm(planes))
+            nn.Sequential(conv1x1(inplanes, planes, stride, bias=bias, dtype=dtype),
+                          FrozenBatchNorm(planes))
             if downsample else None
         )
 
@@ -49,17 +51,18 @@ class Bottleneck(nn.Module):
     expansion = 4
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1, downsample: bool = False,
-                 bias: bool = False):
+                 bias: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
         out_ch = planes * self.expansion
-        self.conv1 = conv1x1(inplanes, planes, bias=bias)
+        self.conv1 = conv1x1(inplanes, planes, bias=bias, dtype=dtype)
         self.bn1 = FrozenBatchNorm(planes)
-        self.conv2 = conv3x3(planes, planes, stride, bias=bias)
+        self.conv2 = conv3x3(planes, planes, stride, bias=bias, dtype=dtype)
         self.bn2 = FrozenBatchNorm(planes)
-        self.conv3 = conv1x1(planes, out_ch, bias=bias)
+        self.conv3 = conv1x1(planes, out_ch, bias=bias, dtype=dtype)
         self.bn3 = FrozenBatchNorm(out_ch)
         self.downsample = (
-            nn.Sequential(conv1x1(inplanes, out_ch, stride, bias=bias), FrozenBatchNorm(out_ch))
+            nn.Sequential(conv1x1(inplanes, out_ch, stride, bias=bias, dtype=dtype),
+                          FrozenBatchNorm(out_ch))
             if downsample else None
         )
 
@@ -77,20 +80,34 @@ class StemConv(nn.Conv2d):
     ``frame_part`` (first 3 channels + bias) depends only on the frame, so
     the engine computes it once per frame; ``mask_part`` (remaining
     channels, no bias) is the only stem work left per object. The split is
-    exact up to one partial-sum reordering.
+    exact up to one partial-sum reordering. Input, kernel and bias are cast
+    to ``dtype``, and the bias is added after the product, as in the JAX
+    package's ``StemConv._conv``.
     """
 
-    def __init__(self, in_channels: int, bias: bool):
+    def __init__(self, in_channels: int, bias: bool, dtype: torch.dtype = torch.float32):
         super().__init__(in_channels, 64, 7, stride=2, padding=3, bias=bias)
+        self.compute_dtype = dtype
+
+    def _conv(self, x, weight, with_bias: bool):
+        dt = self.compute_dtype
+        y = F.conv2d(x.to(dt), weight.to(dt), None, stride=2, padding=3)
+        if with_bias and self.bias is not None:
+            y = y + self.bias.to(dt)[:, None, None]
+        return y
+
+    def forward(self, x):
+        return self._conv(x, self.weight, True)
 
     def frame_part(self, frame):
-        return F.conv2d(frame, self.weight[:, :3], self.bias, stride=2, padding=3)
+        return self._conv(frame, self.weight[:, :3], True)
 
     def mask_part(self, masks):
-        return F.conv2d(masks, self.weight[:, 3:], None, stride=2, padding=3)
+        return self._conv(masks, self.weight[:, 3:], False)
 
 
-def make_stages(backbone: str, bias: bool) -> List[nn.Sequential]:
+def make_stages(backbone: str, bias: bool, dtype: torch.dtype = torch.float32
+                ) -> List[nn.Sequential]:
     """The three residual stages (layer1..layer3) of a trunk."""
     kind, layers = BACKBONE_LAYERS[backbone]
     block = BasicBlock if kind == "basic" else Bottleneck
@@ -102,7 +119,7 @@ def make_stages(backbone: str, bias: bool) -> List[nn.Sequential]:
         for b in range(n_blocks):
             first = b == 0
             down = first and (stride != 1 or inplanes != planes * block.expansion)
-            blocks.append(block(inplanes, planes, stride if first else 1, down, bias))
+            blocks.append(block(inplanes, planes, stride if first else 1, down, bias, dtype))
             inplanes = planes * block.expansion
         stages.append(nn.Sequential(*blocks))
         planes *= 2

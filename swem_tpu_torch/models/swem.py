@@ -8,6 +8,10 @@ is an explicit ``VOSMemory`` threaded by the caller (see ``engine.py``).
 Layouts: frames ``(B, H, W, 3)`` and masks ``(B, H, W, N+1)`` (channel 0 =
 background) are channel-last, as in the JAX package; feature maps between
 the stages are NCHW, with the object axis after the batch axis.
+
+Precision: the conv towers compute in ``cfg.dtype`` (``compute_dtype``);
+the memory read's inputs, the decode from the last resize on and the EM
+masks are float32, with the casts where the JAX package puts them.
 """
 
 from __future__ import annotations
@@ -18,7 +22,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from swem_tpu_torch.config import ModelConfig, resolve_device
+from swem_tpu_torch.config import ModelConfig, compute_dtype, resolve_device
 from swem_tpu_torch.models import em
 from swem_tpu_torch.models.decoder import Decoder
 from swem_tpu_torch.models.encoders import KeyEncoder, KeyProjection, ValueEncoder
@@ -30,9 +34,9 @@ from swem_tpu_torch.ops.resize import resize
 class SwemCore(nn.Module):
     """Holds the GLU fusion of [memory read, query value, top-l feature]."""
 
-    def __init__(self, cin: int, valdim: int):
+    def __init__(self, cin: int, valdim: int, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.fusion_layer = GLUFusion(cin, valdim)
+        self.fusion_layer = GLUFusion(cin, valdim, dtype)
 
 
 def _fold(t: torch.Tensor, n: int) -> torch.Tensor:
@@ -41,18 +45,24 @@ def _fold(t: torch.Tensor, n: int) -> torch.Tensor:
 
 
 class SWEM(nn.Module):
-    """Encoders + EM fusion + decoder, placed on ``device`` (None = CUDA)."""
+    """Encoders + EM fusion + decoder, placed on ``device`` (None = CUDA).
+
+    The parameters are float32 at either compute dtype, so ``state_dict``
+    is the same; each conv casts its kernel to ``cfg.dtype`` per call
+    (round to nearest), as flax does.
+    """
 
     def __init__(self, cfg: ModelConfig = ModelConfig(), device=None):
         super().__init__()
         self.cfg = cfg
+        dt = compute_dtype(cfg)
         f16, f8, f4 = BACKBONE_FEATURES[cfg.backbone]
-        self.key_encoder = KeyEncoder(cfg.backbone)
-        self.key_proj = KeyProjection(f16, cfg.keydim)
-        self.key_comp = conv3x3(f16, cfg.valdim)
-        self.value_encoder = ValueEncoder(f16, cfg.valdim, cfg.single_object)
-        self.swem_core = SwemCore(2 * cfg.valdim + 2 * cfg.topl_eff, cfg.valdim)
-        self.decoder = Decoder(cfg.valdim, f8, f4, cfg.mdim)
+        self.key_encoder = KeyEncoder(cfg.backbone, dt)
+        self.key_proj = KeyProjection(f16, cfg.keydim, dt)
+        self.key_comp = conv3x3(f16, cfg.valdim, dtype=dt)
+        self.value_encoder = ValueEncoder(f16, cfg.valdim, cfg.single_object, dt)
+        self.swem_core = SwemCore(2 * cfg.valdim + 2 * cfg.topl_eff, cfg.valdim, dt)
+        self.decoder = Decoder(cfg.valdim, f8, f4, cfg.mdim, dt)
         self.device = resolve_device(device)
         self.to(self.device).eval()
 
@@ -109,17 +119,18 @@ class SWEM(nn.Module):
     def match(self, qk16, qv16, mem: em.VOSMemory):
         """Memory read + GLU fusion -> object context (B,N,Cv,h,w).
 
-        qk16 (B,Ck,h,w); qv16 (B,Cv,h,w).
+        qk16 (B,Ck,h,w); qv16 (B,Cv,h,w). The read and the concat run in
+        float32; the fusion's input is cast back to the compute dtype.
         """
         B, _, h, w = qk16.shape
         mk, mv, base_valid = em.gather_memory(mem)
         N = mk.shape[1]
-        mem_out, S = em.read_memory(qk16.flatten(2).transpose(1, 2), mk, mv, base_valid,
+        mem_out, S = em.read_memory(qk16.flatten(2).transpose(1, 2).float(), mk, mv, base_valid,
                                     tau=self.cfg.em_tau, topl=self.cfg.topl_eff)
-        qv = qv16.flatten(2).transpose(1, 2)[:, None].expand_as(mem_out)
+        qv = qv16.flatten(2).transpose(1, 2).float()[:, None].expand_as(mem_out)
         feats = torch.cat([mem_out, qv, S], dim=-1)  # (B,N,P,2Cv+2topl)
         feats = feats.reshape(B * N, h, w, feats.shape[-1]).permute(0, 3, 1, 2)
-        context = self.swem_core.fusion_layer(feats)
+        context = self.swem_core.fusion_layer(feats.to(compute_dtype(self.cfg)))
         return context.reshape((B, N) + context.shape[1:])
 
     def decode(self, context, skip8, skip4, valid_obj: Optional[torch.Tensor],

@@ -40,11 +40,14 @@ def read_plain(qk, mk, mv, base_valid, *, tau: float):
 
 
 def _lib():
-    fn = build.load("read_memory").swem_read_memory
+    lib = build.load("read_memory")
+    fn = lib.swem_read_memory
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    return fn
+        lib.swem_read_memory_error.argtypes = [ctypes.c_int]
+        lib.swem_read_memory_error.restype = ctypes.c_char_p
+    return lib
 
 
 def _aligned(x: torch.Tensor) -> torch.Tensor:
@@ -85,13 +88,16 @@ def read_normalized(qk: torch.Tensor, mk: torch.Tensor, mv: torch.Tensor,
     valid = base_valid.contiguous().view(torch.uint8)
     mem_out = torch.empty((B, N, P, Cv), device=qk.device)
     exp_aff = torch.empty((B, N, 2, Lm, P), device=qk.device)
-    err = _lib()(
-        qk.data_ptr(), mk.data_ptr(), mv.data_ptr(), valid.data_ptr(), mem_out.data_ptr(),
-        exp_aff.data_ptr(), B, 2 * N, P, Ck, Cv, Lm, tau,
-        torch.cuda.current_stream(qk.device).cuda_stream,
-    )
+    lib = _lib()
+    with torch.cuda.device(qk.device):
+        err = lib.swem_read_memory(
+            qk.data_ptr(), mk.data_ptr(), mv.data_ptr(), valid.data_ptr(), mem_out.data_ptr(),
+            exp_aff.data_ptr(), B, 2 * N, P, Ck, Cv, Lm, tau,
+            torch.cuda.current_stream(qk.device).cuda_stream,
+        )
     if err != 0:
-        raise RuntimeError(f"read_memory kernel failed to launch: CUDA error {err}")
+        raise RuntimeError(f"read_memory kernel failed to launch: CUDA error {err} "
+                           f"({lib.swem_read_memory_error(err).decode()})")
     global launches
     launches += 1
     return mem_out, exp_aff

@@ -9,7 +9,11 @@ conventions in JAX:
 
 ``resize`` keeps the JAX package's channel-last ``(..., H, W, C)`` signature;
 ``resize_nchw`` is the form the conv towers use. Nearest is an index gather
-(it works for integer index maps too); the others call ``F.interpolate``.
+(it works for integer index maps too). A float32 input takes
+``F.interpolate``, whose float32 arithmetic is the JAX package's formula; a
+bfloat16 input is interpolated one axis at a time with its weights rounded
+to bfloat16, as the JAX package does (``w.astype(x.dtype)``), where
+``F.interpolate`` would compute in float32 and round once.
 """
 
 from __future__ import annotations
@@ -26,6 +30,59 @@ def _nearest_indices(in_size: int, out_size: int, device) -> torch.Tensor:
     return idx.clamp_(0, in_size - 1).to(device)
 
 
+def _source_coords(in_size: int, out_size: int) -> torch.Tensor:
+    """Half-pixel source coordinates, in float32 as torch computes them."""
+    scale = torch.tensor(in_size, dtype=torch.float32) / torch.tensor(out_size,
+                                                                      dtype=torch.float32)
+    return (torch.arange(out_size, dtype=torch.float32) + 0.5) * scale - 0.5
+
+
+def _linear_taps(in_size: int, out_size: int):
+    """Bilinear taps: indices i0, i1 and the float32 weight w1 of i1, each (out,)."""
+    src = _source_coords(in_size, out_size).clamp_min(0.0)
+    i0 = src.floor().long().clamp_max(in_size - 1)
+    return i0, (i0 + 1).clamp_max(in_size - 1), src - i0.float()
+
+
+def _cubic_taps(in_size: int, out_size: int, A: float = -0.75):
+    """Bicubic taps: indices (out, 4) and float32 weights (out, 4)."""
+    src = _source_coords(in_size, out_size)
+    i0 = src.floor()
+    t = src - i0
+    idx = (i0.long()[:, None] + torch.arange(-1, 3)).clamp(0, in_size - 1)
+    ax = torch.stack([1.0 + t, t, 1.0 - t, 2.0 - t], -1)
+    ax2, ax3 = ax * ax, ax * ax * ax
+    w = torch.where(ax <= 1.0, (A + 2.0) * ax3 - (A + 3.0) * ax2 + 1.0,
+                    torch.where(ax < 2.0, A * ax3 - 5.0 * A * ax2 + 8.0 * A * ax - 4.0 * A, 0.0))
+    return idx, w
+
+
+def _resize_axis(x: torch.Tensor, axis: int, out_size: int, method: str) -> torch.Tensor:
+    """Interpolate one axis in x's dtype, weights rounded to it
+    (``swem_tpu/ops/resize.py::_resize_axis_linear`` / ``_resize_axis_cubic``)."""
+    in_size = x.shape[axis]
+    if in_size == out_size:
+        return x
+    shape = [1] * x.ndim
+    shape[axis] = out_size
+
+    def take(i):
+        return x.index_select(axis, i.to(x.device))
+
+    def weight(w):
+        return w.to(x.device, x.dtype).reshape(shape)
+
+    if method == "bilinear":
+        i0, i1, w1 = _linear_taps(in_size, out_size)
+        w = weight(w1)
+        return take(i0) * (1.0 - w) + take(i1) * w
+    idx, ws = _cubic_taps(in_size, out_size)
+    out = take(idx[:, 0]) * weight(ws[:, 0])
+    for tap in range(1, 4):
+        out = out + take(idx[:, tap]) * weight(ws[:, tap])
+    return out
+
+
 def resize_nchw(x: torch.Tensor, size: Tuple[int, int], method: str = "bilinear") -> torch.Tensor:
     """Resize the last two (H, W) axes of ``x`` (..., H, W) to ``size``."""
     h, w = size
@@ -36,6 +93,8 @@ def resize_nchw(x: torch.Tensor, size: Tuple[int, int], method: str = "bilinear"
         raise ValueError(f"unknown resize method: {method}")
     if tuple(x.shape[-2:]) == (h, w):
         return x
+    if x.dtype != torch.float32:
+        return _resize_axis(_resize_axis(x, x.ndim - 2, h, method), x.ndim - 1, w, method)
     lead = x.shape[:-2]
     y = F.interpolate(x.reshape((-1, 1) + tuple(x.shape[-2:])), size=(h, w),
                       mode=method, align_corners=False)

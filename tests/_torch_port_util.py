@@ -16,7 +16,7 @@ from swem_tpu_torch.models.swem import SWEM
 from test_model import tiny_cfg
 
 TINY_FIELDS = ("backbone", "keydim", "valdim", "num_bases", "num_em_iters", "topl",
-               "max_objs", "mdim")
+               "max_objs", "mdim", "dtype")
 
 
 def port_cfg(jax_cfg) -> ModelConfig:

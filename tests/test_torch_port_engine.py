@@ -127,11 +127,11 @@ def test_default_device_is_cuda(monkeypatch):
 
 
 def test_port_imports_no_jax():
-    """Importing the port's engine and weight bridge loads neither JAX nor
-    any module of the JAX package."""
+    """Importing the port's engine, weight bridge and benchmark loads neither
+    JAX nor any module of the JAX package."""
     code = (
         "import sys\n"
-        "import swem_tpu_torch.engine, swem_tpu_torch.io.jax_import\n"
+        "import swem_tpu_torch.engine, swem_tpu_torch.io.jax_import, swem_tpu_torch.bench\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', "
         "'swem_tpu')]\n"
         "assert 'swem_tpu_torch.engine' in sys.modules\n"
