@@ -49,9 +49,31 @@ Needs one CUDA device and the CUDA toolkit; imports nothing of JAX or of
    (``tests/test_bf16_margin.py``): under 1% of pixels over the video, and
    the last 3 frames' share at most 3x the first 3 frames' + 1e-4. Then its
    profile.
-6. one JSON line with every kernel's numbers (``launches`` from the
-   bfloat16 run, ``launches_f32`` from the float32 one), then the card line,
-   then the final ``{"ok": true, ...}`` line.
+6. bfloat16 chunked runner, the production evaluation path: the same
+   weights, a T=24 uint8 HOST video at 480x854 preprocessed on the card to
+   480x864 (/255, bicubic), ``ChunkedVideoRunner(chunk=16)`` after
+   ``warmup``, so its 23 frames run as 16 + 4 + 2 + 1. Each kernel must be
+   launched 23 times in the call. Its index maps are held against
+   ``engine.run_video`` on the same preprocessed frames and generator
+   (>= 99% of pixels; cuDNN may pick other algorithms for batches of
+   16/4/2/1 than for 23), a ``scores=True`` runner's argmax must equal them
+   bit for bit, and an ``injectable=True`` runner started with slot 2
+   inactive and given slot 2's box at frame 6 must hold index 2 on every
+   pixel of the box there. Prints smoke frames/s and the runner's peak
+   device memory beside ``run_video``'s.
+7. bfloat16 streaming session, the online serving path: a
+   ``StreamingSession`` with the same weights (raw 480x854, in 480x864, out
+   480x854, two slots), ``warmup``, ``start`` and 12 pushes, each launching
+   each kernel exactly once, held against ``engine.init_memory`` +
+   ``engine.step`` on the same preprocessed frames and draw (>= 99% of
+   pixels per frame); then ``prepare_grow(3)``, ``grow(3)`` and
+   ``add_objects`` with a third box, which must hold index 3, the memory
+   in use growing by far less than one copy of the weights. Prints the
+   push's wall p50/p95 and the device's busy ms per push.
+8. one JSON line with every kernel's numbers (``launches`` from the
+   bfloat16 run, ``launches_f32`` from the float32 one, ``launches_runner``
+   from phase 6's index runner, ``launches_session`` over phase 7's 12
+   pushes), then the card line, then the final ``{"ok": true, ...}`` line.
 """
 
 from __future__ import annotations
@@ -65,6 +87,7 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 T_VIDEO = 10
+T_RUNNER, CHUNK, N_PUSH = 24, 16, 12
 IN_SIZE, OUT_SIZE = (480, 864), (480, 854)
 # peak rates of an H100 (NVIDIA data sheet): FP32 outside the tensor cores, memory,
 # dense TF32 on the tensor cores
@@ -323,7 +346,6 @@ def drive(model, frames, init_mask, active, card: str, label: str):
     Returns (preds, launches)."""
     import torch
     from swem_tpu_torch import engine
-    from swem_tpu_torch.ops import em_kernel, read_kernel
 
     # warm-up pass: every module's output finite, and TF32 off inside every
     # forward with PyTorch's default flags in force outside
@@ -339,7 +361,7 @@ def drive(model, frames, init_mask, active, card: str, label: str):
 
     hooks = [m.register_forward_hook(guard_hook) for m in model.modules()]
     mem = engine.init_memory(model, torch.Generator().manual_seed(1), frames[0], init_mask, active)
-    mem, _ = engine.run_chunk(model, mem, frames[1:], active, OUT_SIZE)
+    mem, _, _ = engine.run_chunk(model, mem, frames[1:], active, OUT_SIZE)
     for h in hooks:
         h.remove()
     for bank in (mem.first, mem.update):
@@ -357,21 +379,16 @@ def drive(model, frames, init_mask, active, card: str, label: str):
           f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}); every output "
           f"finite; memory float32", flush=True)
 
-    em_kernel.launches = read_kernel.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    preds = engine.run_video(model, torch.Generator().manual_seed(1), frames, init_mask, active,
-                             OUT_SIZE)
-    torch.cuda.synchronize()
+    preds, launches = counted(
+        lambda: engine.run_video(model, torch.Generator().manual_seed(1), frames, init_mask,
+                                 active, OUT_SIZE), T_VIDEO - 1, f"{label} main path")
     dt = time.perf_counter() - t0
-    launches = {"em_loop": em_kernel.launches, "read_memory": read_kernel.launches}
     if preds.shape != (T_VIDEO - 1, 1) + OUT_SIZE or preds.dtype != torch.uint8:
         fail(f"{label} main path: preds {tuple(preds.shape)} {preds.dtype}")
     if int(preds.max()) > model.cfg.max_objs:
         fail(f"{label} main path: index out of range")
-    for name, n in launches.items():
-        if n != T_VIDEO - 1:
-            fail(f"{label} main path: kernel {name} launched {n} times, expected {T_VIDEO - 1}")
     print(f"{label} main path: run_video T={T_VIDEO} in {dt:.3f} s = {T_VIDEO / dt:.2f} frames/s "
           f"(smoke number, not a benchmark) on {card}; launches {launches}", flush=True)
     return preds, launches
@@ -429,7 +446,167 @@ def main_path(card: str) -> tuple:
     if late > 3.0 * early + 1e-4:
         fail(f"bfloat16 main path: the disagreement grows through the video: first 3 frames "
              f"{early:.4f}, last 3 {late:.4f}")
-    return launches16, launches
+    return launches16, launches, bf16
+
+
+def counted(fn, expect: int, label: str):
+    """Run ``fn`` with every launch count set to 0 just before it and read
+    just after; fail unless each kernel launched ``expect`` times.
+    Returns (fn's result, the counts)."""
+    import torch
+    from swem_tpu_torch.ops import em_kernel, read_kernel
+
+    em_kernel.launches = read_kernel.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    launches = {"em_loop": em_kernel.launches, "read_memory": read_kernel.launches}
+    for name, n in launches.items():
+        if n != expect:
+            fail(f"{label}: kernel {name} launched {n} times, expected {expect}")
+    return out, launches
+
+
+def runner_path(model, card: str) -> dict:
+    """Phase 6: the chunked runner at bfloat16; returns the index runner's
+    launch counts."""
+    import torch
+    from swem_tpu_torch import engine
+    from swem_tpu_torch.bench import box_mask, uint8_frames
+    from swem_tpu_torch.ops.resize import resize
+
+    n = model.cfg.max_objs
+    frames = uint8_frames((T_RUNNER, 1) + OUT_SIZE + (3,), 1)  # host, raw 480x854
+    mask, active = box_mask(OUT_SIZE, n), np.ones((1, n), bool)
+
+    def pre(f):
+        return resize(f.float() / 255.0, IN_SIZE, "bicubic")
+
+    def runner(**kw):
+        r = engine.ChunkedVideoRunner(model, OUT_SIZE, chunk=CHUNK, preprocess=pre, **kw)
+        r.warmup(OUT_SIZE, 1, n, np.uint8)
+        return r
+
+    index, scores, injectable = runner(), runner(scores=True), runner(injectable=True)
+    gen = lambda: torch.Generator().manual_seed(1)  # noqa: E731
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    preds, launches = counted(lambda: index(gen(), frames, mask, active), T_RUNNER - 1,
+                              "runner")
+    dt = time.perf_counter() - t0
+    runner_peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    if preds.shape != (T_RUNNER - 1, 1) + OUT_SIZE or preds.dtype != np.uint8:
+        fail(f"runner: preds {preds.shape} {preds.dtype}, expected host uint8")
+
+    torch.cuda.reset_peak_memory_stats()
+    x = pre(torch.from_numpy(frames).cuda())
+    ref = engine.run_video(model, gen(), x, torch.from_numpy(mask).cuda(),
+                           torch.from_numpy(active).cuda(), OUT_SIZE).cpu().numpy()
+    video_peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    del x
+    same = float((preds == ref).mean())
+    print(f"runner (bfloat16): T={T_RUNNER} as {index._sizes(T_RUNNER - 1)} in {dt:.3f} s = "
+          f"{T_RUNNER / dt:.2f} frames/s with uploads and the fetch (smoke number) on {card}; "
+          f"launches {launches}; index pixels identical to run_video's {same:.6f}; peak device "
+          f"memory runner {runner_peak:.1f} MB, run_video {video_peak:.1f} MB (frames "
+          f"preprocessed on the card beforehand)", flush=True)
+    if same < 0.99:
+        fail(f"runner: only {same:.4f} of index pixels agree with run_video")
+
+    soft, _ = counted(lambda: scores(gen(), frames, mask, active), T_RUNNER - 1, "scores runner")
+    if soft.dtype != torch.float32 or soft.shape != (T_RUNNER - 1, 1) + OUT_SIZE + (n + 1,):
+        fail(f"scores runner: {soft.dtype} {tuple(soft.shape)}")
+    if not np.array_equal(soft.argmax(-1).to(torch.uint8).cpu().numpy(), preds):
+        fail("scores runner: its argmax differs from the index runner's maps")
+
+    first = mask.copy()  # slot 2 absent from frame 0, injected at frame 6
+    first[..., 0] += first[..., 2]
+    first[..., 2] = 0.0
+    idx_map = (mask[..., 2] > 0).astype(np.uint8) * 2
+    injections = {6: (idx_map, np.asarray([[False, True]]))}
+    got, _ = counted(lambda: injectable(gen(), frames, first, np.asarray([[True, False]]),
+                                        injections), T_RUNNER - 1, "injectable runner")
+    box = idx_map[0] > 0
+    if not (got[5, 0][box] == 2).all() or (got[:5] == 2).any():
+        fail("injectable runner: slot 2 is not exactly its injected box at frame 6")
+    print(f"runner (bfloat16): scores runner's argmax equals the index maps bit for bit; "
+          f"injected slot 2 holds all {int(box.sum())} pixels of its box at frame 6, and "
+          f"{float((got[6:] == 2).mean()):.4f} of pixels after it", flush=True)
+    return launches
+
+
+def session_path(model, card: str) -> dict:
+    """Phase 7: the streaming session at bfloat16; returns the launch counts
+    summed over its pushes."""
+    import torch
+    from swem_tpu_torch import engine
+    from swem_tpu_torch.bench import box_mask, uint8_frames
+    from swem_tpu_torch.ops.resize import resize
+    from swem_tpu_torch.serve import StreamingSession, measure_device_latency
+
+    cfg = model.cfg
+    frames = uint8_frames((N_PUSH + 2,) + OUT_SIZE + (3,), 2)
+    labels = box_mask(OUT_SIZE, cfg.max_objs)[0].argmax(-1).astype(np.uint8)
+    sess = StreamingSession(cfg, model.state_dict(), raw_hw=OUT_SIZE, in_size=IN_SIZE,
+                            out_size=OUT_SIZE, n_slots=cfg.max_objs)
+    sess.warmup()
+    sess.start(frames[0], labels)
+
+    def pre(f):  # the session's own preprocess, frame by frame
+        return resize(torch.from_numpy(f[None]).cuda().float() / 255.0, IN_SIZE, "bicubic")
+
+    onehot = torch.from_numpy(box_mask(OUT_SIZE, cfg.max_objs)).cuda()
+    active = torch.ones((1, cfg.max_objs), dtype=torch.bool, device="cuda")
+    mem = engine.init_memory(model, torch.Generator().manual_seed(0), pre(frames[0]), onehot,
+                             active)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    wall, shares = [], []
+    totals = {"em_loop": 0, "read_memory": 0}
+    for f in frames[1:N_PUSH + 1]:
+        t0 = time.perf_counter()
+        got, launches = counted(lambda: sess.push(f), 1, "session push")
+        wall.append((time.perf_counter() - t0) * 1e3)
+        for k in totals:
+            totals[k] += launches[k]
+        mem, ref, _ = engine.step(model, mem, pre(f), active, OUT_SIZE)
+        shares.append(float((got == ref[0].cpu().numpy()).mean()))
+    peak2 = torch.cuda.max_memory_allocated() / 2 ** 20
+    print(f"session (bfloat16): {N_PUSH} pushes, index pixels identical to init_memory + step "
+          f"per frame {' '.join(f'{s:.6f}' for s in shares)}; launches {totals}", flush=True)
+    if min(shares) < 0.99:
+        fail(f"session: only {min(shares):.4f} of a frame's pixels agree with step")
+    busy = measure_device_latency(sess, frames[0], labels, frames[1:N_PUSH + 1])
+
+    weights = sum(t.numel() * t.element_size() for t in sess.model.state_dict().values())
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    sess.prepare_grow(3)
+    sess.grow(3)
+    grown = torch.cuda.memory_allocated() - held
+    third = np.zeros(OUT_SIZE, np.uint8)
+    third[20:90, 600:800] = 3
+    t0 = time.perf_counter()
+    got = sess.add_objects(frames[N_PUSH + 1], third, [3])
+    first_ms = (time.perf_counter() - t0) * 1e3
+    peak3 = torch.cuda.max_memory_allocated() / 2 ** 20
+    t0 = time.perf_counter()
+    sess.push(frames[N_PUSH])
+    next_ms = (time.perf_counter() - t0) * 1e3
+    if not (got[third > 0] == 3).all():
+        fail("session: the injected slot 3 does not hold its box")
+    if grown >= weights / 2:
+        fail(f"session: grow(3) added {grown / 2 ** 20:.1f} MB, a second copy of the weights "
+             f"({weights / 2 ** 20:.1f} MB)?")
+    print(f"session (bfloat16): push wall p50 {np.percentile(wall, 50):.3f} ms, p95 "
+          f"{np.percentile(wall, 95):.3f} ms (with the map on the host; smoke numbers); device "
+          f"busy {busy:.3f} ms per push; grow(3) after prepare_grow(3) added {grown / 2 ** 20:.3f}"
+          f" MB in use (weights {weights / 2 ** 20:.1f} MB); peak {peak2:.1f} MB over the "
+          f"2-slot pushes, {peak3:.1f} MB over prepare_grow + grow + the first 3-slot "
+          f"add_objects ({first_ms:.1f} ms wall; the 3-slot push after it {next_ms:.1f} ms), "
+          f"which holds slot 3 on all {int((third > 0).sum())} pixels of its box; on {card}",
+          flush=True)
+    return totals
 
 
 def profile_main_path(model, frames, init_mask, active, label: str) -> None:
@@ -439,6 +616,7 @@ def profile_main_path(model, frames, init_mask, active, label: str) -> None:
     import torch
     from torch.profiler import ProfilerActivity, profile
     from swem_tpu_torch import engine
+    from swem_tpu_torch.utils.profiling import device_busy_seconds
 
     # cuBLAS's GEMMs are named *xmma_gemm* too: only these keys mark a convolution
     groups = (("em_loop kernel", ("em_loop_kernel",)),
@@ -454,23 +632,16 @@ def profile_main_path(model, frames, init_mask, active, label: str) -> None:
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not kernels:
-        print(f"profile ({label}): the profiler recorded no device time", flush=True)
-        return
-    by_group, by_name, spans = {}, {}, []  # by_name: name -> [group, device us, count]
+    busy = device_busy_seconds(prof) * 1e6  # raises when no kernel was recorded
+    by_group, by_name = {}, {}  # by_name: name -> [group, device us, count]
     for e in kernels:
         dur = e.time_range.end - e.time_range.start
-        spans.append((e.time_range.start, e.time_range.end))
         name = e.name.lower()
         group = next((g for g, keys in groups if any(k in name for k in keys)), "other")
         by_group[group] = by_group.get(group, 0.0) + dur
         entry = by_name.setdefault(e.name[:90], [group, 0.0, 0])
         entry[1] += dur
         entry[2] += 1
-    busy, end = 0.0, -float("inf")  # union of kernel intervals
-    for s, e in sorted(spans):
-        busy += max(0.0, e - max(s, end))
-        end = max(end, e)
     total = sum(by_group.values())
     print(f"profile ({label}): run_video T={T_VIDEO} wall {wall_us / 1e3:.3f} ms, "
           f"{len(kernels)} kernels, device busy {busy / 1e3:.3f} ms, idle share "
@@ -515,10 +686,14 @@ def main() -> int:
 
     with full_float32():  # the float32 yardsticks: plain versions, torch.matmul, SDPA
         entries = [check_em(peaks), check_read(peaks)]
-    launches, launches_f32 = main_path(card)
+    launches, launches_f32, bf16 = main_path(card)
+    launches_runner = runner_path(bf16, card)
+    launches_session = session_path(bf16, card)
     for e in entries:
         e["launches"] = launches[e["name"]]
         e["launches_f32"] = launches_f32[e["name"]]
+        e["launches_runner"] = launches_runner[e["name"]]
+        e["launches_session"] = launches_session[e["name"]]
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)

@@ -7,6 +7,7 @@ through their plain PyTorch versions.
 
 from __future__ import annotations
 
+import threading
 from contextlib import contextmanager
 from dataclasses import dataclass
 from typing import Iterator, Optional
@@ -53,6 +54,39 @@ def compute_dtype(cfg: ModelConfig) -> torch.dtype:
     return DTYPES[cfg.dtype]
 
 
+class _Float32Scope:
+    """The process-wide count of open ``full_float32`` scopes.
+
+    The two TF32 flags are process-global, so scopes that overlap in time
+    (a thread warming a grown session while another pushes frames) share
+    one saved state: the first scope in saves the flags and turns TF32 off,
+    the last one out puts them back. Restoring per scope would let a scope
+    that closes first turn TF32 back on inside one that is still open.
+    """
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.depth = 0
+        self.saved = (False, False)
+
+    def enter(self) -> None:
+        cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+        with self.lock:
+            if self.depth == 0:
+                self.saved = cudnn.allow_tf32, matmul.allow_tf32
+                cudnn.allow_tf32 = matmul.allow_tf32 = False
+            self.depth += 1
+
+    def exit(self) -> None:
+        with self.lock:
+            self.depth -= 1
+            if self.depth == 0:
+                torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = self.saved
+
+
+_FLOAT32_SCOPE = _Float32Scope()
+
+
 @contextmanager
 def full_float32() -> Iterator[None]:
     """Float32 convolutions and matrix products in full float32, not TF32.
@@ -60,19 +94,18 @@ def full_float32() -> Iterator[None]:
     The same at both compute dtypes: bf16 parts are bf16 by their explicit
     casts, and the float32 ones (every float32 conv tower, the ``nu`` GEMM,
     the norms) compute as the JAX package's do at precision HIGHEST.
-    PyTorch's own default runs float32 convolutions in TF32. Scoped: the two
-    flags are set here and put back as found on exit, also after an
+    PyTorch's own default runs float32 convolutions in TF32. Scoped and
+    counted across threads: the two flags are set when the first open scope
+    begins and put back as found when the last one ends, also after an
     exception. (``torch.backends.cudnn.flags`` would also reset the CUDA
     backend's float32 precision setting, which slowed float32 matrix
     products on the card, inside the scope and after it.)
     """
-    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
-    saved = cudnn.allow_tf32, matmul.allow_tf32
-    cudnn.allow_tf32 = matmul.allow_tf32 = False
+    _FLOAT32_SCOPE.enter()
     try:
         yield
     finally:
-        cudnn.allow_tf32, matmul.allow_tf32 = saved
+        _FLOAT32_SCOPE.exit()
 
 
 def resolve_device(device: Optional[str | torch.device] = None) -> torch.device:

@@ -17,6 +17,7 @@ from __future__ import annotations
 import functools
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from swem_tpu_torch.config import full_float32
@@ -117,21 +118,54 @@ def _memorize_from_pred(model: SWEM, mem, frame, active, qk16, s16, vf, pred_idx
                        n_iters=cfg.num_em_iters, tau=cfg.em_tau)
 
 
+def _injection(inject_idx, inject_new, n_slots: int, device):
+    """One frame's injected ground truth: the slot-index map (B,Ho,Wo) and
+    the newly-appearing slots (B,N) -> (one-hot of the new slots only
+    (B,Ho,Wo,N+1) float32, new (B,N) bool), both on ``device``."""
+    idx = torch.as_tensor(inject_idx, device=device).long()
+    new = torch.as_tensor(inject_new, device=device)
+    slots = torch.arange(1, n_slots + 1, device=device)
+    new_hot = (idx[..., None] == slots) & new[:, None, None, :]
+    return torch.cat([torch.zeros_like(new_hot[..., :1]), new_hot], dim=-1).float(), new
+
+
 @_entry_point
 def run_chunk(model: SWEM, mem: em.VOSMemory, frames, active, out_size: Tuple[int, int], *,
-              final: bool = False) -> Tuple[em.VOSMemory, torch.Tensor]:
-    """Run a chunk of frames (C,B,H,W,3), carrying the memory -> (mem, preds
-    (C,B,Ho,Wo) uint8). The chunk's keys are encoded in one batched pass.
-    ``final``: the chunk ends the video, so its last frame is not memorized
-    (the memory after the video is never read)."""
+              final: bool = False, scores: bool = False, inject_idx=None, inject_new=None
+              ) -> Tuple[em.VOSMemory, torch.Tensor, torch.Tensor]:
+    """Run a chunk of frames (C,B,H,W,3), carrying the memory and ``active``.
+
+    Returns (mem, preds, active): preds are (C,B,Ho,Wo) uint8 indices or,
+    with ``scores``, the stacked pred_mask (C,B,Ho,Wo,N+1) float32; active
+    (B,N) is the slot state after the chunk. The chunk's keys are encoded in
+    one batched pass. ``final``: the chunk ends the video, so its last frame
+    is not memorized (the memory after the video is never read).
+
+    ``inject_idx`` (C,B,Ho,Wo) uint8 slot-index maps + ``inject_new``
+    (C,B,N) bool, a host array: objects appearing at a frame take their
+    ground truth there and join ``active`` from that frame on. The host
+    decides which frames inject, so a frame whose row is all False runs no
+    injection op and only an injecting frame's map goes to the device.
+    """
+    if (inject_idx is None) != (inject_new is None):
+        raise ValueError("run_chunk: inject_idx and inject_new go together")
+    new_rows = None if inject_new is None else np.asarray(inject_new, dtype=bool)
     keys = encode_keys_batched(model, frames)
     preds = []
     for t in range(frames.shape[0]):
+        inject = {}
+        if new_rows is not None and new_rows[t].any():
+            inject_mask, new = _injection(inject_idx[t], new_rows[t], active.shape[-1],
+                                          frames.device)
+            inject = dict(inject_mask=inject_mask, inject_new=new)
         last = final and t == frames.shape[0] - 1
-        mem, pred_idx, _ = step(model, mem, frames[t], active, out_size,
-                                do_memorize=not last, keys=tuple(k[t] for k in keys))
-        preds.append(pred_idx)
-    return mem, torch.stack(preds)
+        mem, pred_idx, pred_mask = step(model, mem, frames[t], active, out_size,
+                                        do_memorize=not last, keys=tuple(k[t] for k in keys),
+                                        **inject)
+        if inject:
+            active = active | inject["inject_new"]
+        preds.append(pred_mask if scores else pred_idx)
+    return mem, torch.stack(preds), active
 
 
 @_entry_point
@@ -139,10 +173,167 @@ def run_video(model: SWEM, generator: Optional[torch.Generator], frames, init_ma
               out_size: Tuple[int, int], *, bases: Optional[em.Bases] = None) -> torch.Tensor:
     """Whole-video inference: frames (T,B,H,W,3) -> (T-1,B,Ho,Wo) uint8 for
     frames 1..T-1. Frame 0 and its mask seed the memory; the last frame is
-    not memorized."""
+    not memorized. All T-1 frames are key-encoded in one batch, so memory
+    grows with T: long videos go through ``ChunkedVideoRunner``."""
     mem = init_memory(model, generator, frames[0], init_mask, active, bases=bases)
     T, B = frames.shape[:2]
     if T == 1:
         return torch.zeros((0, B) + tuple(out_size), dtype=torch.uint8, device=frames.device)
-    _, preds = run_chunk(model, mem, frames[1:], active, out_size, final=True)
+    _, preds, _ = run_chunk(model, mem, frames[1:], active, out_size, final=True)
     return preds
+
+
+@_entry_point
+def run_video_scores(model: SWEM, generator: Optional[torch.Generator], frames, init_mask,
+                     active, out_size: Tuple[int, int], *,
+                     bases: Optional[em.Bases] = None) -> torch.Tensor:
+    """``run_video`` returning the soft masks (T-1,B,Ho,Wo,N+1) float32, which
+    multi-scale and flip evaluation average before the argmax."""
+    mem = init_memory(model, generator, frames[0], init_mask, active, bases=bases)
+    T, B = frames.shape[:2]
+    if T == 1:
+        return torch.zeros((0, B) + tuple(out_size) + (init_mask.shape[-1],),
+                           dtype=torch.float32, device=frames.device)
+    _, scores, _ = run_chunk(model, mem, frames[1:], active, out_size, final=True, scores=True)
+    return scores
+
+
+def ladder_sizes(chunk: int):
+    """Descending powers of two below ``chunk``.
+
+    Greedy selection over distinct powers {2^k, ..., 2, 1} covers ANY
+    remainder < 2^(k+1) >= chunk (binary representation), so the tail
+    decomposition is exact for every chunk size — starting at chunk//2
+    would leave gaps for non-power-of-two chunks (chunk=6 -> [3, 1]
+    cannot represent remainders 2 or 5).
+    """
+    s = 1
+    while s * 2 < chunk:
+        s *= 2
+    sizes = []
+    while s >= 1:
+        sizes.append(s)
+        s //= 2
+    return sizes
+
+
+class ChunkedVideoRunner:
+    """Whole-video inference over host frames, in chunks of bounded size.
+
+    Frames 1..T-1 run through ``run_chunk`` in chunks of ``chunk`` frames,
+    the remainder through the binary ladder of smaller chunks
+    (``ladder_sizes``): no padded frames, and every video uses batch sizes
+    from the fixed set {chunk} + ladder, which ``warmup`` runs once. Peak
+    device memory is set by the chunk, not by the video's length, since
+    each chunk key-encodes its own frames only. The video's last frame is
+    not memorized.
+
+    ``scores=True`` returns (T-1,B,Ho,Wo,N+1) float32 soft masks on the
+    device; otherwise (T-1,B,Ho,Wo) uint8 indices on the host, fetched once
+    at the end. ``preprocess`` maps uploaded frames to the model's input on
+    the device (e.g. uint8 -> /255 -> bicubic to the in-size) and takes
+    both (B,H,W,3) and (C,B,H,W,3). ``injectable=True`` admits mid-video
+    object injection (YouTube-VOS) through ``__call__``'s ``injections``.
+    """
+
+    def __init__(self, model: SWEM, out_size: Tuple[int, int], chunk: int = 16,
+                 scores: bool = False, preprocess=None, injectable: bool = False):
+        self.model = model
+        self.out_size = tuple(out_size)
+        self.chunk = chunk
+        self.scores = scores
+        self.injectable = injectable
+        self._pre = preprocess if preprocess is not None else (lambda f: f)
+
+    def _upload(self, frames: np.ndarray) -> torch.Tensor:
+        """Host frames -> the model's device, preprocessed."""
+        return self._pre(torch.from_numpy(np.ascontiguousarray(frames)).to(self.model.device))
+
+    def _sizes(self, n_frames: int):
+        """Chunk sizes covering ``n_frames``: full chunks, then the ladder."""
+        sizes = [self.chunk] * (n_frames // self.chunk)
+        rest = n_frames % self.chunk
+        for s in ladder_sizes(self.chunk):
+            if s <= rest:
+                sizes.append(s)
+                rest -= s
+        return sizes
+
+    @_entry_point
+    def warmup(self, frame_hw: Tuple[int, int], batch: int, n_slots: int,
+               frame_dtype=np.float32) -> None:
+        """Run init and every chunk size once on zeros, and fetch the
+        predictions, so that no timed call pays a batch size's first-call
+        setup (cuDNN's choice of algorithms, kernel loads, allocator
+        blocks). ``frame_hw`` and ``frame_dtype`` describe the raw host
+        frames, before ``preprocess``."""
+        dev = self.model.device
+        f0 = np.zeros((batch,) + tuple(frame_hw) + (3,), frame_dtype)
+        mask = torch.zeros((batch,) + self.out_size + (n_slots + 1,), device=dev)
+        active = torch.zeros((batch, n_slots), dtype=torch.bool, device=dev)
+        mem = init_memory(self.model, torch.Generator().manual_seed(0), self._upload(f0), mask,
+                          active)
+        for size in [self.chunk] + ladder_sizes(self.chunk):
+            frames = self._upload(np.zeros((size,) + f0.shape, frame_dtype))
+            mem, preds, _ = run_chunk(self.model, mem, frames, active, self.out_size,
+                                      scores=self.scores)
+            if not self.scores:
+                preds.cpu()
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def _chunk_injections(self, injections, t: int, size: int, batch: int, n_slots: int):
+        """(inject_idx, inject_new) host blocks of frames t..t+size-1, or
+        (None, None) when none of them injects."""
+        frames = [j for j in range(size) if t + j in injections]
+        if not frames:
+            return None, None
+        idx = np.zeros((size, batch) + self.out_size, np.uint8)
+        new = np.zeros((size, batch, n_slots), bool)
+        for j in frames:
+            idx[j], new[j] = injections[t + j]
+        return idx, new
+
+    @_entry_point
+    def __call__(self, generator: Optional[torch.Generator], frames, init_mask, active,
+                 injections=None, *, bases: Optional[em.Bases] = None):
+        """frames (T,B,H,W,3): a HOST array (numpy, commonly uint8); each
+        chunk's slice is uploaded once. init_mask (B,Ho,Wo,N+1) and active
+        (B,N), the frame-0 state, as host arrays or tensors. ``injections``
+        (needs ``injectable=True``): {frame index: (idx_map (B,Ho,Wo) uint8
+        slot-index map, new (B,N) bool)} for objects that appear at that
+        frame. ``generator`` or ``bases`` seed the memory, as in
+        ``init_memory``.
+
+        Returns the predictions of frames 1..T-1 (see the class docstring).
+        """
+        if isinstance(frames, torch.Tensor):
+            raise TypeError("ChunkedVideoRunner wants HOST frames (numpy): a tensor would go "
+                            "device -> host -> device; pass frames.cpu().numpy() if that is "
+                            "really intended")
+        if injections and not self.injectable:
+            raise ValueError("injections require ChunkedVideoRunner(injectable=True)")
+        injections = injections or {}
+        frames = np.asarray(frames)
+        dev = self.model.device
+        T, B = frames.shape[:2]
+        init_mask = torch.as_tensor(init_mask, device=dev)
+        active = torch.as_tensor(active, device=dev)
+        mem = init_memory(self.model, generator, self._upload(frames[0]), init_mask, active,
+                          bases=bases)
+        preds, t = [], 1
+        for size in self._sizes(T - 1):
+            inject_idx, inject_new = self._chunk_injections(injections, t, size, B,
+                                                            active.shape[-1])
+            mem, p, active = run_chunk(self.model, mem, self._upload(frames[t:t + size]), active,
+                                       self.out_size, final=t + size == T, scores=self.scores,
+                                       inject_idx=inject_idx, inject_new=inject_new)
+            preds.append(p)
+            t += size
+        if self.scores:
+            if not preds:
+                return torch.zeros((0, B) + self.out_size + (init_mask.shape[-1],), device=dev)
+            return torch.cat(preds)
+        if not preds:
+            return np.zeros((0, B) + self.out_size, np.uint8)
+        return torch.cat(preds).cpu().numpy()

@@ -9,9 +9,11 @@ import numpy as np
 import torch
 
 from swem_tpu.io.torch_import import convert_swem_state_dict
+from swem_tpu.models import em as jem
 from swem_tpu.models.swem import SWEM as JaxSWEM
 from swem_tpu_torch.config import ModelConfig
 from swem_tpu_torch.io.jax_import import jax_to_state_dict
+from swem_tpu_torch.models.em import Bases
 from swem_tpu_torch.models.swem import SWEM
 from test_model import tiny_cfg
 
@@ -26,6 +28,15 @@ def port_cfg(jax_cfg) -> ModelConfig:
 def t(a) -> torch.Tensor:
     """numpy / jax array -> a CPU tensor that owns its data."""
     return torch.tensor(np.asarray(a))
+
+
+def jax_bases(cfg, key, n_objs=None) -> Bases:
+    """The JAX package's draw of initial bases from ``key`` (``n_objs`` slots,
+    default ``cfg.max_objs``), as the port's ``Bases``: the two frameworks
+    draw different random numbers, so parity tests hand this draw to both."""
+    mem = jem.fresh_memory(key, 1, n_objs or cfg.max_objs, cfg.keydim, cfg.valdim,
+                           cfg.num_bases)
+    return Bases(t(mem.first.kappa), t(mem.first.nu), t(mem.first.zita))
 
 
 def tiny_pair(seed: int = 0, **cfg_kw):

@@ -127,14 +127,15 @@ def test_default_device_is_cuda(monkeypatch):
 
 
 def test_port_imports_no_jax():
-    """Importing the port's engine, weight bridge and benchmark loads neither
-    JAX nor any module of the JAX package."""
+    """Importing the port's engine, session, weight bridge and benchmark loads
+    neither JAX nor any module of the JAX package."""
     code = (
         "import sys\n"
         "import swem_tpu_torch.engine, swem_tpu_torch.io.jax_import, swem_tpu_torch.bench\n"
+        "import swem_tpu_torch.serve\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', "
         "'swem_tpu')]\n"
-        "assert 'swem_tpu_torch.engine' in sys.modules\n"
+        "assert {'swem_tpu_torch.engine', 'swem_tpu_torch.serve'} <= set(sys.modules)\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
