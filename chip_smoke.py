@@ -70,14 +70,48 @@ Needs one CUDA device and the CUDA toolkit; imports nothing of JAX or of
    ``add_objects`` with a third box, which must hold index 3, the memory
    in use growing by far less than one copy of the weights. Prints the
    push's wall p50/p95 and the device's busy ms per push.
-8. one JSON line with every kernel's numbers (``launches`` from the
+8. the evaluator, with the same weights: a DAVIS-shaped tree written to
+   disk (3 videos of 12, 17 and 20 JPEG frames at 480x854 with 2, 2 and 3
+   moving boxes and their palette-PNG annotations: slot buckets 2 and 4 of
+   a budget of 8) and a YouTube-VOS-shaped one (one video of 10 frames at
+   720x1280, inferred at 480x848, a second object injected at frame 4).
+   Each evaluation runs once to build and warm its runners, then once with
+   the launch counts read. bfloat16 ``Evaluator.val``: every frame gets a
+   PNG, each kernel launches sum(T - 1) = 46 times, video 0's maps equal a
+   direct ``ChunkedVideoRunner`` call on the same frames and bases bit for
+   bit, the global J&F is finite, and the ground truth scored as a
+   prediction gives J&F 1.000. ``video_batch=2``: T_max - 1 launches per
+   batch, >= 99% of sequential per video. Scales (480, 600) with flip on
+   video 0: 2 x 2 x (T - 1) launches, the flipped inputs negative-stride
+   views. float32 on video 0: >= 99% of the bf16 maps. ``n_kernel=4``,
+   sigma 7: K2 launches 0 times, K1 T - 1, the maps differ from
+   ``n_kernel=0``. YouTube-VOS: T - 1 launches, only the listed frames
+   saved, the injected box holding its annotation id on every pixel. Then
+   the evaluation frames/s at a DAVIS val length (2 videos of T = 69, 2
+   boxes each, so one batch of two): bfloat16 sequential and
+   ``video_batch=2`` in turns, three timed runs each (sum(T - 1) and
+   T - 1 launches), and float32; every frame a PNG, indices within the
+   video's objects, and the three runs' agreement printed by quarter of
+   the video (not gated: over 69 frames at tau = 0.05 one run may part
+   from the others).
+   Prints the frames/s of each evaluation (the short videos' are smoke
+   numbers: they run mostly through the chunk ladder), the phase's peak
+   memory and wall time, and the device's idle share in a profiled bf16
+   ``evaluate`` of the DAVIS-length videos.
+9. the float64 checks of both kernels again, at every shape that phases
+   4-8 handed them (recorded as they ran): the evaluator's slot buckets,
+   video batches, multi-scale and YouTube-VOS pixel counts, the session's
+   grown slots; tolerances and the rerun check as in phases 2 and 3.
+10. one JSON line with every kernel's numbers (``launches`` from the
    bfloat16 run, ``launches_f32`` from the float32 one, ``launches_runner``
    from phase 6's index runner, ``launches_session`` over phase 7's 12
-   pushes), then the card line, then the final ``{"ok": true, ...}`` line.
+   pushes, ``launches_eval`` from phase 8's bfloat16 ``val``), then the
+   card line, then the final ``{"ok": true, ...}`` line.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import sys
 import time
@@ -89,6 +123,13 @@ ROOT = Path(__file__).resolve().parent
 T_VIDEO = 10
 T_RUNNER, CHUNK, N_PUSH = 24, 16, 12
 IN_SIZE, OUT_SIZE = (480, 864), (480, 854)
+# the evaluator phase: DAVIS videos (name, T, moving boxes) at EVAL_HW, run at
+# EVAL_IN; multi-scale scales; one YouTube-VOS video with a late object
+EVAL_VIDEOS = (("boxes0", 12, 2), ("boxes1", 17, 2), ("boxes2", 20, 3))
+EVAL_HW, EVAL_IN, EVAL_SCALES = OUT_SIZE, IN_SIZE, (480, 600)
+YT_RAW, YT_SSIZE, YT_T, YT_LATE, YT_LATE_ID = (720, 1280), 480, 10, 4, 5
+# the evaluator's timed frames/s at a DAVIS val length (its videos run 25-104)
+EVAL_LONG, LONG_REPS = (("long0", 69, 2), ("long1", 69, 2)), 3
 # peak rates of an H100 (NVIDIA data sheet): FP32 outside the tensor cores, memory,
 # dense TF32 on the tensor cores
 PEAKS = {"sxm": (67e12, 3.35e12, 495e12), "pcie": (51e12, 2.0e12, 378e12)}
@@ -171,6 +212,40 @@ def em_inputs(rng, B, N, P, Ck, L, x_std, empty_slot=None):
     return [torch.from_numpy(a).cuda() for a in (x, masks, kappa0, zita0)]
 
 
+def em_case(name: str, inputs, n_iters: int, tau: float, tol, empty=None) -> float:
+    """K1 on ``inputs`` against its plain version in float64, rerun bit for
+    bit; returns the max abs error."""
+    import torch
+    from swem_tpu_torch.ops import em_kernel
+
+    rtol, atol = tol
+    got = em_kernel.em_loop(*inputs, n_iters=n_iters, tau=tau)
+    again = em_kernel.em_loop(*inputs, n_iters=n_iters, tau=tau)
+    # float64 referee; the float32 plain loop beside it shows the limit's margin
+    ref = em_kernel.em_loop_plain(*(t.double() for t in inputs), n_iters=n_iters, tau=tau)
+    plain32 = em_kernel.em_loop_plain(*inputs, n_iters=n_iters, tau=tau)
+    torch.cuda.synchronize()
+    errs = [compare(f"K1 {name} {o}", g, r, rtol, atol)
+            for o, g, r in zip(("z", "kappa", "zita"), got, ref)]
+    if empty is not None:
+        compare(f"K1 {name} empty slot kappa unchanged", got[1][:, empty], inputs[2][:, empty],
+                1e-5, 1e-6)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        fail(f"K1 {name}: two runs on the same inputs gave different bits")
+    ratios = [worst_ratio(g, r, rtol, atol) for g, r in zip(got + plain32, ref + ref)]
+    print(f"K1 {name}: max abs err vs float64 z {errs[0]:.3e} kappa {errs[1]:.3e} "
+          f"zita {errs[2]:.3e}; worst err/limit (z, kappa, zita) kernel {ratios[0]:.3f} "
+          f"{ratios[1]:.3f} {ratios[2]:.3f}, float32 plain {ratios[3]:.3f} {ratios[4]:.3f} "
+          f"{ratios[5]:.3f}; rerun bit-identical", flush=True)
+    return max(errs)
+
+
+def em_tolerance(n_iters: int) -> tuple:
+    """rtol/atol from the JAX package's kernel test: tight for one round; at 4
+    rounds tau = 0.05 makes the loop chaotic, so summation-order ulps grow."""
+    return (1e-4, 1e-5) if n_iters == 1 else (5e-2, 1e-2)
+
+
 def check_em(peaks) -> dict:
     """K1 against its plain version in float64; returns the kernel's JSON entry."""
     import torch
@@ -178,41 +253,21 @@ def check_em(peaks) -> dict:
 
     rng = np.random.default_rng(0)
     tau = 0.05
-    # rtol/atol from the JAX package's kernel test: tight for one round; at 4
-    # rounds tau = 0.05 makes the loop chaotic, so summation-order ulps grow.
-    # Flagship x has std 0.3 (|x| about 3.4): with std 1 even float32 against
-    # float64 of the same plain code leaves these bounds at 4 rounds.
+    # em_tolerance's bounds. Flagship x has std 0.3 (|x| about 3.4): with std 1
+    # even float32 against float64 of the same plain code leaves them at 4 rounds.
     # (B, N, P, Ck, L): flagship; ragged P with narrow Ck and L and an empty
     # slot; the reference's default L = 256; more tile items than CTAs.
     cases = [
-        ("flagship 1 round", (1, 2, 1620, 128, 128), 0.3, 1, None, (1e-4, 1e-5)),
-        ("flagship 4 rounds", (1, 2, 1620, 128, 128), 0.3, 4, None, (5e-2, 1e-2)),
-        ("ragged, empty slot", (2, 8, 130, 16, 8), 1.0, 4, 5, (5e-2, 1e-2)),
-        ("flagship L=256", (1, 2, 1620, 128, 256), 0.3, 4, None, (5e-2, 1e-2)),
-        ("N=8 P=3600", (1, 8, 3600, 128, 128), 0.3, 4, None, (5e-2, 1e-2)),
+        ("flagship 1 round", (1, 2, 1620, 128, 128), 0.3, 1, None, em_tolerance(1)),
+        ("flagship 4 rounds", (1, 2, 1620, 128, 128), 0.3, 4, None, em_tolerance(4)),
+        ("ragged, empty slot", (2, 8, 130, 16, 8), 1.0, 4, 5, em_tolerance(4)),
+        ("flagship L=256", (1, 2, 1620, 128, 256), 0.3, 4, None, em_tolerance(4)),
+        ("N=8 P=3600", (1, 8, 3600, 128, 128), 0.3, 4, None, em_tolerance(4)),
     ]
     max_err = 0.0
-    for name, shape, x_std, n_iters, empty, (rtol, atol) in cases:
+    for name, shape, x_std, n_iters, empty, tol in cases:
         inputs = em_inputs(rng, *shape, x_std, empty)
-        got = em_kernel.em_loop(*inputs, n_iters=n_iters, tau=tau)
-        again = em_kernel.em_loop(*inputs, n_iters=n_iters, tau=tau)
-        # float64 referee; the float32 plain loop beside it shows the limit's margin
-        ref = em_kernel.em_loop_plain(*(t.double() for t in inputs), n_iters=n_iters, tau=tau)
-        plain32 = em_kernel.em_loop_plain(*inputs, n_iters=n_iters, tau=tau)
-        torch.cuda.synchronize()
-        errs = [compare(f"K1 {name} {o}", g, r, rtol, atol)
-                for o, g, r in zip(("z", "kappa", "zita"), got, ref)]
-        if empty is not None:
-            compare(f"K1 {name} empty slot kappa unchanged", got[1][:, empty], inputs[2][:, empty],
-                    1e-5, 1e-6)
-        if not all(torch.equal(a, b) for a, b in zip(got, again)):
-            fail(f"K1 {name}: two runs on the same inputs gave different bits")
-        ratios = [worst_ratio(g, r, rtol, atol) for g, r in zip(got + plain32, ref + ref)]
-        max_err = max(max_err, *errs)
-        print(f"K1 {name}: max abs err vs float64 z {errs[0]:.3e} kappa {errs[1]:.3e} "
-              f"zita {errs[2]:.3e}; worst err/limit (z, kappa, zita) kernel {ratios[0]:.3f} "
-              f"{ratios[1]:.3f} {ratios[2]:.3f}, float32 plain {ratios[3]:.3f} {ratios[4]:.3f} "
-              f"{ratios[5]:.3f}; rerun bit-identical", flush=True)
+        max_err = max(max_err, em_case(name, inputs, n_iters, tau, tol, empty))
     B, N, P, Ck, L = cases[1][1]
     n_iters = 4
     x, masks, kappa0, zita0 = em_inputs(rng, B, N, P, Ck, L, 0.3)
@@ -264,6 +319,36 @@ def read_inputs(rng, B, N, P, Ck, Lm, Cv, valid_case):
     return qk, mk, mv, valid
 
 
+def read_case(name: str, inputs, tau: float) -> float:
+    """K2 on ``inputs`` (raw keys, normalized here) against its plain version
+    in float64 at rtol 1e-4 / atol 1e-6, rerun bit for bit; returns the max
+    abs error."""
+    import torch
+    from swem_tpu_torch.ops import read_kernel
+    from swem_tpu_torch.ops.em_kernel import l2norm
+
+    qk, mk, mv, valid = inputs
+    qn, mkn = l2norm(qk, -1), l2norm(mk, -2)
+    got = read_kernel.read_normalized(qn, mkn, mv, valid, tau=tau)
+    # float64 referee: 3xTF32 and FP32 each lie about 3e-6 from it
+    ref = read_kernel.read_plain(qn.double(), mkn.double(), mv.double(), valid, tau=tau)
+    again = read_kernel.read_normalized(qn, mkn, mv, valid, tau=tau)
+    torch.cuda.synchronize()
+    errs = [compare(f"K2 {name} {o}", g, r, 1e-4, 1e-6)
+            for o, g, r in zip(("mem_out", "exp_aff"), got, ref)]
+    if not valid[:, 1].any() and bool(got[0][:, 1].any() or got[1][:, 1].any()):
+        fail(f"K2 {name}: an object with no valid base must read exactly 0")
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        fail(f"K2 {name}: two runs on the same inputs gave different bits")
+    plain32 = read_kernel.read_plain(qn, mkn, mv, valid, tau=tau)
+    ratios = [worst_ratio(g, r, 1e-4, 1e-6) for g, r in zip(got + plain32, ref + ref)]
+    print(f"K2 {name}: max abs err vs float64 mem_out {errs[0]:.3e} "
+          f"exp_aff {errs[1]:.3e}; worst err/limit (mem_out, exp_aff) kernel "
+          f"{ratios[0]:.3f} {ratios[1]:.3f}, float32 plain {ratios[2]:.3f} "
+          f"{ratios[3]:.3f}; rerun bit-identical", flush=True)
+    return max(errs)
+
+
 def check_read(peaks) -> dict:
     """K2 against its plain version in float64; returns the kernel's JSON entry."""
     import torch
@@ -279,27 +364,8 @@ def check_read(peaks) -> dict:
     max_err = 0.0
     for shape_name, shape in shapes:
         for valid_case in READ_CASES:
-            name = f"{shape_name}, {valid_case}"
-            qk, mk, mv, valid = read_inputs(rng, *shape, valid_case)
-            qn, mkn = l2norm(qk, -1), l2norm(mk, -2)
-            got = read_kernel.read_normalized(qn, mkn, mv, valid, tau=tau)
-            # float64 referee: 3xTF32 and FP32 each lie about 3e-6 from it
-            ref = read_kernel.read_plain(qn.double(), mkn.double(), mv.double(), valid, tau=tau)
-            again = read_kernel.read_normalized(qn, mkn, mv, valid, tau=tau)
-            torch.cuda.synchronize()
-            errs = [compare(f"K2 {name} {o}", g, r, 1e-4, 1e-6)
-                    for o, g, r in zip(("mem_out", "exp_aff"), got, ref)]
-            if valid_case == "object never seen" and bool(got[0][:, 1].any() or got[1][:, 1].any()):
-                fail(f"K2 {name}: an object with no valid base must read exactly 0")
-            if not all(torch.equal(a, b) for a, b in zip(got, again)):
-                fail(f"K2 {name}: two runs on the same inputs gave different bits")
-            plain32 = read_kernel.read_plain(qn, mkn, mv, valid, tau=tau)
-            ratios = [worst_ratio(g, r, 1e-4, 1e-6) for g, r in zip(got + plain32, ref + ref)]
-            max_err = max(max_err, *errs)
-            print(f"K2 {name}: max abs err vs float64 mem_out {errs[0]:.3e} "
-                  f"exp_aff {errs[1]:.3e}; worst err/limit (mem_out, exp_aff) kernel "
-                  f"{ratios[0]:.3f} {ratios[1]:.3f}, float32 plain {ratios[2]:.3f} "
-                  f"{ratios[3]:.3f}; rerun bit-identical", flush=True)
+            inputs = read_inputs(rng, *shape, valid_case)
+            max_err = max(max_err, read_case(f"{shape_name}, {valid_case}", inputs, tau))
     # the tolerance's margin over more flagship draws, for the kernel and for
     # the float32 plain read: reported, not checked (float32 itself sits near 1)
     for seed in range(2, 10):
@@ -338,6 +404,61 @@ def check_read(peaks) -> dict:
             "replaces": "swem_tpu/ops/read_pallas.py:57 (_read_kernel, pallas_call at :161)",
             "launches": None, "max_abs_err": max_err, "ms": ms, "plain_ms": plain,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": library, "wrapper_ms": wrapper}
+
+
+@contextlib.contextmanager
+def recording_shapes(log: dict):
+    """Record into ``log`` ({kernel name: set of keys}) the shapes that the
+    paths run inside hand each kernel's wrapper on the card, so that
+    ``check_path_shapes`` can hold the kernels against float64 at each of
+    them. The wrappers and their launch counts are untouched."""
+    from swem_tpu_torch.models import em
+    from swem_tpu_torch.ops import read_kernel
+
+    em_loop, read_normalized = em.em_loop, read_kernel.read_normalized
+
+    def em_seen(x, masks, kappa0, zita0, *, n_iters, tau):
+        if x.is_cuda:
+            B, P, Ck = x.shape
+            log["em_loop"].add((B, masks.shape[1], P, Ck, kappa0.shape[-1], n_iters, tau))
+        return em_loop(x, masks, kappa0, zita0, n_iters=n_iters, tau=tau)
+
+    def read_seen(qk, mk, mv, base_valid, *, tau):
+        if qk.is_cuda:
+            B, P, Ck = qk.shape
+            log["read_memory"].add((B, mk.shape[1], P, Ck, mk.shape[-1], mv.shape[-2], tau))
+        return read_normalized(qk, mk, mv, base_valid, tau=tau)
+
+    em.em_loop, read_kernel.read_normalized = em_seen, read_seen
+    try:
+        yield
+    finally:
+        em.em_loop, read_kernel.read_normalized = em_loop, read_normalized
+
+
+def check_path_shapes(log: dict) -> dict:
+    """Both kernels against their plain versions in float64 at every shape
+    the paths handed them (``recording_shapes``): the evaluator's slot
+    buckets, video batches, multi-scale and YouTube-VOS sizes among them.
+    Tolerances and the rerun check are ``check_em``'s and ``check_read``'s;
+    a bucket wider than 2 slots leaves its last slot empty, as padding does.
+    Returns each kernel's max abs error."""
+    rng = np.random.default_rng(2)
+    errs = {"em_loop": 0.0, "read_memory": 0.0}
+    for B, N, P, Ck, L, n_iters, tau in sorted(log["em_loop"]):
+        empty = N - 1 if N > 2 else None
+        name = f"path shape (B, N, P, Ck, L) {(B, N, P, Ck, L)}, {n_iters} rounds"
+        inputs = em_inputs(rng, B, N, P, Ck, L, 0.3, empty)
+        errs["em_loop"] = max(errs["em_loop"],
+                              em_case(name, inputs, n_iters, tau, em_tolerance(n_iters), empty))
+    for B, N, P, Ck, Lm, Cv, tau in sorted(log["read_memory"]):
+        for valid_case in READ_CASES:
+            name = f"path shape (B, N, P, Ck, Lm, Cv) {(B, N, P, Ck, Lm, Cv)}, {valid_case}"
+            inputs = read_inputs(rng, B, N, P, Ck, Lm, Cv, valid_case)
+            errs["read_memory"] = max(errs["read_memory"], read_case(name, inputs, tau))
+    print(f"path shapes checked against float64: em_loop {sorted(log['em_loop'])}, "
+          f"read_memory {sorted(log['read_memory'])}", flush=True)
+    return errs
 
 
 def drive(model, frames, init_mask, active, card: str, label: str):
@@ -449,10 +570,10 @@ def main_path(card: str) -> tuple:
     return launches16, launches, bf16
 
 
-def counted(fn, expect: int, label: str):
+def counted(fn, expect, label: str):
     """Run ``fn`` with every launch count set to 0 just before it and read
-    just after; fail unless each kernel launched ``expect`` times.
-    Returns (fn's result, the counts)."""
+    just after; fail unless each kernel launched ``expect`` times (one count
+    for both, or a dict by kernel). Returns (fn's result, the counts)."""
     import torch
     from swem_tpu_torch.ops import em_kernel, read_kernel
 
@@ -461,8 +582,9 @@ def counted(fn, expect: int, label: str):
     torch.cuda.synchronize()
     launches = {"em_loop": em_kernel.launches, "read_memory": read_kernel.launches}
     for name, n in launches.items():
-        if n != expect:
-            fail(f"{label}: kernel {name} launched {n} times, expected {expect}")
+        want = expect[name] if isinstance(expect, dict) else expect
+        if n != want:
+            fail(f"{label}: kernel {name} launched {n} times, expected {want}")
     return out, launches
 
 
@@ -609,6 +731,264 @@ def session_path(model, card: str) -> dict:
     return totals
 
 
+def write_davis_tree(root: Path, videos) -> None:
+    """A DAVIS-shaped tree: ``videos`` is [(name, T, n_boxes)]; each video is
+    seeded noise at EVAL_HW with ``n_boxes`` coloured boxes moving across
+    it, its JPEG frames and palette-PNG annotations for every frame, listed
+    in ImageSets/2017/val.txt."""
+    import cv2
+    from swem_tpu_torch.data.palette import davis_palette, save_seg_mask
+
+    H, W = EVAL_HW
+    palette = davis_palette()
+    (root / "ImageSets" / "2017").mkdir(parents=True, exist_ok=True)
+    (root / "ImageSets" / "2017" / "val.txt").write_text("".join(f"{v[0]}\n" for v in videos))
+    for vid, (name, T, n_boxes) in enumerate(videos):
+        jdir, adir = root / "JPEGImages" / "480p" / name, root / "Annotations" / "480p" / name
+        jdir.mkdir(parents=True)
+        adir.mkdir(parents=True)
+        rng = np.random.default_rng(100 + vid)
+        colours = rng.integers(60, 256, (n_boxes, 3))
+        for t in range(T):
+            img = (rng.random((H, W, 3)) * 60).astype(np.uint8)
+            label = np.zeros((H, W), np.uint8)
+            for k in range(n_boxes):
+                y0, x0 = (60 + 130 * k) * H // 480, (40 + 12 * t + 250 * k) * W // 854
+                ys, xs = slice(y0, y0 + 100 * H // 480), slice(x0, x0 + 140 * W // 854)
+                img[ys, xs] = colours[k]
+                label[ys, xs] = k + 1
+            cv2.imwrite(str(jdir / f"{t:05d}.jpg"), cv2.cvtColor(img, cv2.COLOR_RGB2BGR))
+            save_seg_mask(label, str(adir / f"{t:05d}.png"), palette)
+
+
+def write_ytvos_tree(root: Path, T: int, late: int, late_id: int):
+    """A YouTube-VOS-shaped tree: one video at YT_RAW, object 1 from frame 0
+    and object ``late_id`` from frame ``late`` (annotated there only, as the
+    valid split is); every other frame is listed for saving. Returns the
+    late object's box mask."""
+    import cv2
+    from swem_tpu_torch.data.palette import davis_palette, save_seg_mask
+
+    H, W = YT_RAW
+    jdir, adir = root / "JPEGImages" / "video0", root / "Annotations" / "video0"
+    jdir.mkdir(parents=True)
+    adir.mkdir(parents=True)
+    rng = np.random.default_rng(7)
+    box1 = (slice(H // 6, H // 2), slice(W // 8, W // 3))
+    box2 = (slice(H // 2, 5 * H // 6), slice(W // 2, 3 * W // 4))
+    for t in range(T):
+        img = (rng.random((H, W, 3)) * 60).astype(np.uint8)
+        img[box1] = (220, 80, 60)
+        if t >= late:
+            img[box2] = (60, 90, 230)
+        cv2.imwrite(str(jdir / f"{t:05d}.jpg"), cv2.cvtColor(img, cv2.COLOR_RGB2BGR))
+    for t, (box, obj) in ((0, (box1, 1)), (late, (box2, late_id))):
+        label = np.zeros((H, W), np.uint8)
+        label[box] = obj
+        save_seg_mask(label, str(adir / f"{t:05d}.png"), davis_palette())
+    names = [f"{t:05d}" for t in range(T)]
+    meta = {"videos": {"video0": {"objects": {
+        "1": {"frames": names[0::2]}, str(late_id): {"frames": names[late::2]}}}}}
+    (root / "meta.json").write_text(json.dumps(meta))
+    mask = np.zeros((H, W), bool)
+    mask[box2] = True
+    return mask
+
+
+def read_pngs(out_dir: Path) -> np.ndarray:
+    """(T, H, W) uint8 of a video's saved palette PNGs, in frame order."""
+    from swem_tpu_torch.data.palette import load_label_mask
+
+    return np.stack([load_label_mask(str(p)) for p in sorted(out_dir.glob("*.png"))])
+
+
+def eval_path(model, card: str) -> dict:
+    """Phase 8: the evaluator on DAVIS- and YouTube-VOS-shaped trees; returns
+    the launch counts of the bf16 DAVIS ``val``."""
+    import dataclasses
+    import shutil
+
+    import torch
+    from swem_tpu_torch import engine
+    from swem_tpu_torch.config import EvalConfig, SWEMConfig
+    from swem_tpu_torch.data.davis_test import DavisTestSet
+    from swem_tpu_torch.eval.benchmark import DavisEvaluation, write_reports
+    from swem_tpu_torch.eval.evaluator import Evaluator
+    from swem_tpu_torch.ops.resize import resize
+    from swem_tpu_torch.utils import setup_logger
+    from swem_tpu_torch.utils.profiling import device_busy_seconds
+    from torch.profiler import ProfilerActivity, profile
+
+    t_phase = time.perf_counter()
+    work = ROOT / "build" / "chip_smoke_eval"
+    shutil.rmtree(work, ignore_errors=True)
+    davis, one, yt = work / "davis", work / "davis_one", work / "ytvos"
+    write_davis_tree(davis, EVAL_VIDEOS)
+    write_davis_tree(one, EVAL_VIDEOS[:1])  # video 0 alone, the same bits
+    box = write_ytvos_tree(yt, YT_T, YT_LATE, YT_LATE_ID)
+    state = model.state_dict()
+    dev = model.device
+    torch.cuda.reset_peak_memory_stats()
+
+    def evaluator(tag, root, model_kw=None, **eval_kw):
+        cfg = SWEMConfig(model=dataclasses.replace(model.cfg, **(model_kw or {})),
+                         eval=EvalConfig(data_root=str(root), max_objs=8,
+                                         davis_in_size=EVAL_IN, **eval_kw),
+                         log_dir=str(work / "logs" / tag))
+        # the evaluator's log (per-video lines, per-object series) to a file only
+        logger = setup_logger(f"chip_smoke_eval_{tag}", str(work / "logs" / tag), screen=False)
+        return Evaluator(cfg, state, logger=logger, device=dev)
+
+    def run(ev, expect, label, fn=None):
+        """The evaluation once to build and warm its runners, then once with
+        the launch counts read."""
+        ev.evaluate()
+        return counted(fn or ev.evaluate, expect, label)[1]
+
+    # bf16 sequential through val(): every frame a PNG, Σ(T - 1) launches
+    seq = evaluator("bf16", davis)
+    n_seq = sum(T - 1 for _, T, _ in EVAL_VIDEOS)
+    launches = run(seq, n_seq, "evaluator DAVIS bf16", fn=lambda: seq.val())
+    results = read_global_csv(Path(seq.save_dir))
+    maps = {name: read_pngs(Path(seq.out_root) / name) for name, _, _ in EVAL_VIDEOS}
+    for name, T, _ in EVAL_VIDEOS:
+        if maps[name].shape != (T,) + EVAL_HW:
+            fail(f"evaluator DAVIS: {name} has PNGs {maps[name].shape}, expected {T} frames")
+    if not all(np.isfinite(v) for v in results.values()):
+        fail(f"evaluator DAVIS: non-finite global results {results}")
+    # video 0 by hand: the same frames, bases and runner sizes, the same bits
+    v0 = DavisTestSet(str(davis), n_slots=8)[0]
+    direct = engine.ChunkedVideoRunner(seq.model, EVAL_HW, chunk=16, preprocess=lambda f: resize(
+        f.float() / 255.0, EVAL_IN, "bicubic"))(
+        None, v0.frames[:, None], v0.init_mask[None, ..., :3],
+        np.asarray([[True, True]]), bases=seq.initial_bases(2))
+    if not np.array_equal(direct[:, 0], maps[v0.name][1:]):
+        fail("evaluator DAVIS: video 0's maps differ from a direct ChunkedVideoRunner call")
+    gt = write_reports(DavisEvaluation(str(davis)).evaluate(str(davis / "Annotations" / "480p")),
+                       str(work / "gt_as_prediction"), "DAVIS17")
+    if abs(gt["J&F-Mean"] - 1.0) > 1e-12:
+        fail(f"evaluator DAVIS: the ground truth scored as a prediction gives {gt}")
+    print(f"evaluator (bfloat16): DAVIS tree of {len(EVAL_VIDEOS)} videos at {EVAL_HW} "
+          f"(T {[T for _, T, _ in EVAL_VIDEOS]}, boxes {[n for _, _, n in EVAL_VIDEOS]}): "
+          f"{seq.fps:.2f} frames/s (FrameSecondMeter: uploads to the host fetch, PNGs excluded) "
+          f"on {card}; launches {launches}; J&F {results['J&F-Mean']:.3f} (random weights); "
+          f"video 0 equals a direct runner call bit for bit; ground truth as prediction J&F "
+          f"{gt['J&F-Mean']:.3f}", flush=True)
+
+    # two videos per batch: T_max - 1 launches per batch; here each slot
+    # bucket's videos (2 boxes: bucket 2; 3 boxes: bucket 4) make one batch
+    vb = evaluator("vb2", davis, video_batch=2)
+    n_vb = sum(max(T for _, T, n in EVAL_VIDEOS if (n <= 2) == two) - 1 for two in (True, False))
+    launches_vb = run(vb, n_vb, "evaluator DAVIS video_batch=2")
+    shares = {name: float((read_pngs(Path(vb.out_root) / name) == maps[name]).mean())
+              for name in maps}
+    print(f"evaluator (bfloat16, video_batch=2): {vb.fps:.2f} frames/s on {card}; launches "
+          f"{launches_vb} (T_max - 1 per batch); index pixels equal to sequential {shares}",
+          flush=True)
+    if min(shares.values()) < 0.99:
+        fail(f"evaluator video_batch=2: {shares} of pixels agree with sequential")
+
+    T0 = EVAL_VIDEOS[0][1]
+    name0 = EVAL_VIDEOS[0][0]
+    ms = evaluator("ms", one, scales=EVAL_SCALES, flip=True)
+    launches_ms = run(ms, len(EVAL_SCALES) * 2 * (T0 - 1), "evaluator multi-scale + flip")
+    ms_maps = read_pngs(Path(ms.out_root) / name0)
+    print(f"evaluator (bfloat16, scales {EVAL_SCALES} + flip, one video): {ms.fps:.2f} frames/s; "
+          f"launches {launches_ms}; index pixels equal to the single scale's "
+          f"{float((ms_maps == maps[name0]).mean()):.6f}", flush=True)
+
+    f32 = evaluator("f32", one, model_kw={"dtype": "float32"})
+    launches_f32 = run(f32, T0 - 1, "evaluator float32")
+    same = float((read_pngs(Path(f32.out_root) / name0) == maps[name0]).mean())
+    print(f"evaluator (float32, one video): {f32.fps:.2f} frames/s on {card}; launches "
+          f"{launches_f32}; index pixels equal to bf16 {same:.6f}", flush=True)
+    if same < 0.99:
+        fail(f"evaluator float32: only {same:.4f} of pixels agree with bf16")
+
+    local = evaluator("n_kernel", one, model_kw={"n_kernel": 4, "kernel_sigma": 7.0})
+    launches_nk = run(local, {"em_loop": T0 - 1, "read_memory": 0}, "evaluator n_kernel=4")
+    nk_maps = read_pngs(Path(local.out_root) / name0)
+    differ = float((nk_maps != maps[name0]).mean())
+    print(f"evaluator (bfloat16, n_kernel=4 sigma=7, one video): {local.fps:.2f} frames/s; "
+          f"launches {launches_nk}; index pixels that differ from n_kernel=0 {differ:.6f}",
+          flush=True)
+    if differ == 0.0 or int(nk_maps.max()) > 2:
+        fail("evaluator n_kernel=4: maps equal to n_kernel=0's, or an index out of range")
+
+    ytv = evaluator("ytvos", yt, eval_set="YTVOS19", ssize=YT_SSIZE)
+    launches_yt = run(ytv, YT_T - 1, "evaluator YouTube-VOS")
+    saved = sorted(p.stem for p in (Path(ytv.out_root) / "video0").glob("*.png"))
+    late = read_pngs(Path(ytv.out_root) / "video0")[saved.index(f"{YT_LATE:05d}")]
+    print(f"evaluator (bfloat16, YouTube-VOS {YT_RAW} raw -> in "
+          f"{tuple(ytv.dataset[0].in_size)}, T={YT_T}): {ytv.fps:.2f} frames/s; launches "
+          f"{launches_yt}; saved {saved}; object {YT_LATE_ID} injected at frame {YT_LATE} holds "
+          f"{float((late[box] == YT_LATE_ID).mean()):.6f} of its box", flush=True)
+    if not (late[box] == YT_LATE_ID).all() or saved != [f"{t:05d}" for t in range(0, YT_T, 2)]:
+        fail("evaluator YouTube-VOS: the injected object's box or the saved frames are wrong")
+    # frames/s at a DAVIS val length: full 16-frame chunks; sequential and
+    # video_batch=2 in turns, so that the host's drift hits both alike
+    long_root = work / "davis_long"
+    write_davis_tree(long_root, EVAL_LONG)
+    n_long, t_long = sum(T - 1 for _, T, _ in EVAL_LONG), EVAL_LONG[0][1]
+    lseq, lvb = evaluator("long_bf16", long_root), evaluator("long_vb2", long_root, video_batch=2)
+    lseq.evaluate()
+    lvb.evaluate()
+    long_fps = {"sequential": [], "video_batch=2": []}
+    for _ in range(LONG_REPS):
+        counted(lseq.evaluate, n_long, "evaluator DAVIS length bf16")
+        long_fps["sequential"].append(lseq.fps)
+        counted(lvb.evaluate, t_long - 1, "evaluator DAVIS length video_batch=2")
+        long_fps["video_batch=2"].append(lvb.fps)
+    lf32 = evaluator("long_f32", long_root, model_kw={"dtype": "float32"})
+    run(lf32, n_long, "evaluator DAVIS length float32")
+    long_maps = {tag: {name: read_pngs(Path(ev.out_root) / name) for name, _, _ in EVAL_LONG}
+                 for tag, ev in (("seq", lseq), ("vb2", lvb), ("f32", lf32))}
+
+    def quarters(a, b):  # the share of equal pixels in each quarter of the video
+        eq = (a == b).reshape(a.shape[0], -1).mean(1)
+        return " ".join(f"{float(q.mean()):.6f}" for q in np.array_split(eq, 4))
+
+    print(f"evaluator at a DAVIS val length ({len(EVAL_LONG)} videos of T={t_long} at "
+          f"{EVAL_HW}, one slot bucket): frames/s (FrameSecondMeter) on {card}: " + "; ".join(
+              f"bf16 {mode} median {np.median(v):.2f} (runs {' '.join(f'{x:.2f}' for x in v)})"
+              for mode, v in long_fps.items())
+          + f"; float32 {lf32.fps:.2f}; launches {n_long} sequential, {t_long - 1} per batch of 2",
+          flush=True)
+    # checked: a PNG per frame, indices within the video's objects; the
+    # agreements are reported only: over 69 frames at tau = 0.05 one run's
+    # trajectory may part from the others' (the short videos are gated)
+    for name, T, n_boxes in EVAL_LONG:
+        m = {tag: maps_[name] for tag, maps_ in long_maps.items()}
+        for tag, a in m.items():
+            if a.shape != (T,) + EVAL_HW or int(a.max()) > n_boxes:
+                fail(f"evaluator DAVIS length {tag}: {name} has PNGs {a.shape} with indices up "
+                     f"to {int(a.max())}, expected {T} frames of at most {n_boxes}")
+        for a, b in (("vb2", "seq"), ("f32", "seq"), ("f32", "vb2")):
+            print(f"  {name}: {a} equal to {b} on {float((m[a] == m[b]).mean()):.6f} of pixels; "
+                  f"by quarter of the video {quarters(m[a], m[b])}", flush=True)
+    # where an evaluation's time goes: the device's busy share of the bf16
+    # DAVIS-length evaluate(), last, so that the profiler's session times
+    # nothing above
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        lseq.evaluate()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = device_busy_seconds(prof)
+    n_kernels = sum(e.device_type == torch.autograd.DeviceType.CUDA for e in prof.events())
+    print(f"evaluator (bfloat16) under torch.profiler: evaluate() wall {wall * 1e3:.3f} ms for "
+          f"{n_long + len(EVAL_LONG)} frames of T={t_long} videos, {n_kernels} device events, device busy "
+          f"{busy * 1e3:.3f} ms, idle share {1 - busy / wall:.4f}", flush=True)
+    print(f"evaluator phase: peak device memory {torch.cuda.max_memory_allocated() / 2 ** 20:.1f}"
+          f" MB, wall {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
+def read_global_csv(save_dir: Path) -> dict:
+    names, values = (save_dir / "global_results-DAVIS17.csv").read_text().split()
+    return dict(zip(names.split(","), map(float, values.split(","))))
+
+
 def profile_main_path(model, frames, init_mask, active, label: str) -> None:
     """Where the main path's time goes: one more ``run_video`` under
     ``torch.profiler``, device time summed by kernel group, and the share of
@@ -686,14 +1066,21 @@ def main() -> int:
 
     with full_float32():  # the float32 yardsticks: plain versions, torch.matmul, SDPA
         entries = [check_em(peaks), check_read(peaks)]
-    launches, launches_f32, bf16 = main_path(card)
-    launches_runner = runner_path(bf16, card)
-    launches_session = session_path(bf16, card)
+    shapes = {"em_loop": set(), "read_memory": set()}
+    with recording_shapes(shapes):
+        launches, launches_f32, bf16 = main_path(card)
+        launches_runner = runner_path(bf16, card)
+        launches_session = session_path(bf16, card)
+        launches_eval = eval_path(bf16, card)
+    with full_float32():
+        path_errs = check_path_shapes(shapes)
     for e in entries:
+        e["max_abs_err"] = max(e["max_abs_err"], path_errs[e["name"]])
         e["launches"] = launches[e["name"]]
         e["launches_f32"] = launches_f32[e["name"]]
         e["launches_runner"] = launches_runner[e["name"]]
         e["launches_session"] = launches_session[e["name"]]
+        e["launches_eval"] = launches_eval[e["name"]]
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)

@@ -1,4 +1,5 @@
-"""Model configuration (the port's own copy of ``swem_tpu.config.ModelConfig``).
+"""Configuration: the port's own copies of ``swem_tpu.config``'s dataclasses,
+with the fields that inference and the evaluator read.
 
 The port has no kernel routing switch: on a CUDA tensor the EM loop and the
 memory read always run through the hand-written kernels, on a CPU tensor
@@ -9,8 +10,8 @@ from __future__ import annotations
 
 import threading
 from contextlib import contextmanager
-from dataclasses import dataclass
-from typing import Iterator, Optional
+from dataclasses import dataclass, field
+from typing import Iterator, Optional, Sequence, Tuple
 
 import torch
 
@@ -39,6 +40,10 @@ class ModelConfig:
     # compute dtype of the conv towers: 'float32' for parity, 'bfloat16' for
     # speed; the EM statistics, the memory and both kernels stay float32
     dtype: str = "float32"
+    # Gaussian locality reweighting of the memory read (inference only; off,
+    # as in the reference, at n_kernel = 0)
+    n_kernel: int = 0
+    kernel_sigma: float = 7.0
 
     def __post_init__(self):
         if self.dtype not in DTYPES:
@@ -47,6 +52,50 @@ class ModelConfig:
     @property
     def topl_eff(self) -> int:
         return int(min(self.num_bases, self.topl))
+
+
+@dataclass(frozen=True)
+class DataConfig:
+    seed: int = 123  # seeds each video's initial EM bases at evaluation
+
+
+@dataclass(frozen=True)
+class SolverConfig:
+    stage: int = 0  # 0 pretrain, 1 DAVIS, 2 YTVOS, 3 DAVIS+YTVOS
+
+    @property
+    def stage_name(self) -> str:
+        return f"S{self.stage}"
+
+
+@dataclass(frozen=True)
+class EvalConfig:
+    """Evaluation settings (``swem_tpu.config.EvalConfig``)."""
+
+    eval_set: str = "DAVIS17"  # DAVIS16|DAVIS17|DAVIS17Test|YTVOS18|YTVOS19
+    data_root: str = "datasets"
+    ssize: int = 480  # YouTube-VOS short side for inference
+    davis_in_size: Tuple[int, int] = (480, 864)  # fixed DAVIS inference size
+    chunk: int = 16  # the runner's chunk length
+    video_batch: int = 1  # videos per device batch (throughput mode)
+    visualize: bool = False
+    max_objs: int = 8  # static object-slot budget at evaluation
+    flip: bool = False
+    scales: Sequence[int] = (480,)
+    obj_parallel: int = 1  # object slots over this many devices: not ported
+    per_object_csv: bool = False
+
+
+@dataclass(frozen=True)
+class SWEMConfig:
+    """Everything an evaluation reads (``swem_tpu.config.SWEMConfig``)."""
+
+    model: ModelConfig = field(default_factory=ModelConfig)
+    data: DataConfig = field(default_factory=DataConfig)
+    solver: SolverConfig = field(default_factory=SolverConfig)
+    eval: EvalConfig = field(default_factory=EvalConfig)
+    exp_name: str = "swem"
+    log_dir: str = "logs"  # results go to <log_dir>/<model>/<stage>/<exp_name>/results
 
 
 def compute_dtype(cfg: ModelConfig) -> torch.dtype:

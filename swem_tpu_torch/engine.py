@@ -51,8 +51,10 @@ def init_memory(model: SWEM, generator: Optional[torch.Generator], frame0, init_
     """Frame-0 memory: encode frame 0 and its mask, EM-memorize from fresh bases.
 
     frame0 (B,H,W,3); init_mask (B,Ho,Wo,N+1); active (B,N). The initial
-    prototypes are one random draw from ``generator`` shared across the
-    batch, or ``bases`` (batch 1 or B) when given.
+    prototypes are one random draw of N slots from ``generator`` shared
+    across the batch, or ``bases`` (batch 1 or B) when given. N comes from
+    the mask, not from ``model.cfg.max_objs``: the weights do not depend on
+    the slot count, so one model serves every slot budget.
     """
     cfg = model.cfg
     qk16, _, s16, _, _ = model.encode_key(frame0)
@@ -60,7 +62,7 @@ def init_memory(model: SWEM, generator: Optional[torch.Generator], frame0, init_
     mv16 = model.encode_value(frame0, init_mask_in, s16)
     B, _, h, w = qk16.shape
     if bases is None:
-        bases = em.init_bases(generator, 1, cfg.max_objs, cfg.keydim, cfg.valdim,
+        bases = em.init_bases(generator, 1, init_mask.shape[-1] - 1, cfg.keydim, cfg.valdim,
                               cfg.num_bases)
     mem = em.fresh_memory(bases.to(model.device).expand(B))
     em_masks = prepare_em_masks(init_mask, init_mask.float(), (h, w))
@@ -118,12 +120,20 @@ def _memorize_from_pred(model: SWEM, mem, frame, active, qk16, s16, vf, pred_idx
                        n_iters=cfg.num_em_iters, tau=cfg.em_tau)
 
 
+def _to_device(x, device) -> torch.Tensor:
+    """A tensor or any host array (numpy views with negative strides, such as
+    ``np.flip``'s, included) -> a tensor on ``device``."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    return torch.as_tensor(np.ascontiguousarray(x), device=device)
+
+
 def _injection(inject_idx, inject_new, n_slots: int, device):
     """One frame's injected ground truth: the slot-index map (B,Ho,Wo) and
     the newly-appearing slots (B,N) -> (one-hot of the new slots only
     (B,Ho,Wo,N+1) float32, new (B,N) bool), both on ``device``."""
-    idx = torch.as_tensor(inject_idx, device=device).long()
-    new = torch.as_tensor(inject_new, device=device)
+    idx = _to_device(inject_idx, device).long()
+    new = _to_device(inject_new, device)
     slots = torch.arange(1, n_slots + 1, device=device)
     new_hot = (idx[..., None] == slots) & new[:, None, None, :]
     return torch.cat([torch.zeros_like(new_hot[..., :1]), new_hot], dim=-1).float(), new
@@ -317,8 +327,8 @@ class ChunkedVideoRunner:
         frames = np.asarray(frames)
         dev = self.model.device
         T, B = frames.shape[:2]
-        init_mask = torch.as_tensor(init_mask, device=dev)
-        active = torch.as_tensor(active, device=dev)
+        init_mask = _to_device(init_mask, dev)
+        active = _to_device(active, dev)
         mem = init_memory(self.model, generator, self._upload(frames[0]), init_mask, active,
                           bases=bases)
         preds, t = [], 1

@@ -6,8 +6,11 @@ all-zero masks, which makes their EM update a no-op.
 
 The W/E/M loop runs in ``ops/em_kernel.em_loop`` and the affinity read in
 ``ops/read_kernel.read_affinity``: hand-written kernels on a CUDA tensor,
-their plain versions on a CPU tensor. Only the final ``nu`` update carries
-gradients, as in the reference.
+their plain versions on a CPU tensor. The read with Gaussian locality
+reweighting (``n_kernel > 0``, an inference option of the configuration) is
+another function, ``_read_local``, in PyTorch ops on every device, as it is
+XLA code beside the TPU kernel in the JAX package. Only the final ``nu``
+update carries gradients, as in the reference.
 """
 
 from __future__ import annotations
@@ -144,13 +147,55 @@ def _perm_inv_feat(exp_aff: torch.Tensor, topl: int) -> torch.Tensor:
     return torch.cat([ratio, 1.0 - ratio], dim=-1)
 
 
-def read_memory(qk, mk, mv, base_valid, *, tau: float, topl: int):
-    """Attention-style memory read (inference; no locality kernel, no drop).
+def _gaussian_kernels(aff: torch.Tensor, hw: Tuple[int, int], n_kernel: int, sigma: float,
+                      tau: float) -> torch.Tensor:
+    """Gaussian locality weights: for each base, Gaussians at its top-``n_kernel``
+    query pixels; each pixel is weighted by exp(max over them of
+    -d^2 / (2 sigma^2), / tau). aff (B,N,2,Lm,P) raw affinities, -inf on
+    invalid bases (their top-k picks arbitrary pixels; exp_aff zeroes those
+    rows) -> (B,N,2,Lm,P)."""
+    h, w = hw
+    top_idx = torch.topk(aff, n_kernel, dim=-1).indices  # (B,N,2,Lm,k) over pixels
+    x_idx, y_idx = (top_idx % w).float(), ((top_idx // w) % h).float()
+    pix = torch.arange(aff.shape[-1], device=aff.device)
+    xv, yv = (pix % w).float(), ((pix // w) % h).float()
+    d2 = ((xv[:, None] - x_idx[..., None, :]) ** 2
+          + (yv[:, None] - y_idx[..., None, :]) ** 2)  # (B,N,2,Lm,P,k)
+    return torch.exp(torch.amax(-d2 / (2.0 * sigma ** 2), dim=-1) / tau)
+
+
+def _read_local(qk, mk, mv, base_valid, *, tau: float, n_kernel: int, sigma: float,
+                hw: Tuple[int, int]):
+    """The memory read with Gaussian locality reweighting (PyTorch ops on
+    every device: a different function from K2's read, selected by
+    ``n_kernel > 0``). Same arguments as ``read_memory``; returns
+    (mem_out (B,N,P,Cv), exp_aff (B,N,2,Lm,P) unweighted)."""
+    aff = torch.matmul(l2norm(mk, -2).transpose(-1, -2),
+                       l2norm(qk, -1).transpose(1, 2)[:, None, None])  # (B,N,2,Lm,P)
+    valid = base_valid[..., None]
+    aff = aff.masked_fill(~valid, float("-inf"))
+    maxes = aff.amax(dim=(2, 3), keepdim=True)  # joint over {bg,fg} x Lm
+    exp_aff = torch.where(valid, torch.exp((aff - maxes) / tau), 0.0)
+    weighted = exp_aff * _gaussian_kernels(aff, hw, n_kernel, sigma, tau)
+    p_aff = weighted / (weighted.sum(dim=(2, 3), keepdim=True) + 1e-8)  # the reference's epsilon
+    return torch.einsum("bnsvl,bnslp->bnpv", mv, p_aff), exp_aff
+
+
+def read_memory(qk, mk, mv, base_valid, *, tau: float, topl: int, n_kernel: int = 0,
+                sigma: float = 7.0, hw: Optional[Tuple[int, int]] = None):
+    """Attention-style memory read (inference; no memory dropout).
 
     qk (B,P,Ck) raw query keys; mk (B,N,2,Ck,Lm) raw prototypes;
-    mv (B,N,2,Cv,Lm); base_valid (B,N,2,Lm) bool.
+    mv (B,N,2,Cv,Lm); base_valid (B,N,2,Lm) bool. ``n_kernel > 0`` adds the
+    Gaussian locality reweighting on the query grid ``hw`` = (h, w), h*w = P;
+    otherwise the read is K2's (``read_affinity``).
     Returns (mem_out (B,N,P,Cv), S (B,N,P,2*topl)).
     """
-    mem_out, exp_aff = read_affinity(qk, mk, mv, base_valid, tau=tau)
+    if n_kernel > 0:
+        if hw is None:
+            raise ValueError("read_memory: n_kernel > 0 needs hw=(h, w) of the query grid")
+        mem_out, exp_aff = _read_local(qk, mk, mv, base_valid, tau=tau, n_kernel=n_kernel,
+                                       sigma=sigma, hw=hw)
+    else:
+        mem_out, exp_aff = read_affinity(qk, mk, mv, base_valid, tau=tau)
     return mem_out, _perm_inv_feat(exp_aff, topl)
-

@@ -126,7 +126,9 @@ class SWEM(nn.Module):
         mk, mv, base_valid = em.gather_memory(mem)
         N = mk.shape[1]
         mem_out, S = em.read_memory(qk16.flatten(2).transpose(1, 2).float(), mk, mv, base_valid,
-                                    tau=self.cfg.em_tau, topl=self.cfg.topl_eff)
+                                    tau=self.cfg.em_tau, topl=self.cfg.topl_eff,
+                                    n_kernel=self.cfg.n_kernel, sigma=self.cfg.kernel_sigma,
+                                    hw=(h, w))
         qv = qv16.flatten(2).transpose(1, 2).float()[:, None].expand_as(mem_out)
         feats = torch.cat([mem_out, qv, S], dim=-1)  # (B,N,P,2Cv+2topl)
         feats = feats.reshape(B * N, h, w, feats.shape[-1]).permute(0, 3, 1, 2)

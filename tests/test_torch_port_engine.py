@@ -127,15 +127,19 @@ def test_default_device_is_cuda(monkeypatch):
 
 
 def test_port_imports_no_jax():
-    """Importing the port's engine, session, weight bridge and benchmark loads
-    neither JAX nor any module of the JAX package."""
+    """Importing the port's engine, session, weight bridge, benchmark,
+    evaluator, registry and evaluation CLI loads neither JAX nor any module
+    of the JAX package."""
     code = (
         "import sys\n"
         "import swem_tpu_torch.engine, swem_tpu_torch.io.jax_import, swem_tpu_torch.bench\n"
-        "import swem_tpu_torch.serve\n"
+        "import swem_tpu_torch.serve, swem_tpu_torch.registry, swem_tpu_torch.io.checkpoint\n"
+        "import swem_tpu_torch.eval.evaluator, swem_tpu_torch.eval.__main__\n"
+        "import swem_tpu_torch.eval.benchmark, swem_tpu_torch.utils.visualization\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', "
         "'swem_tpu')]\n"
-        "assert {'swem_tpu_torch.engine', 'swem_tpu_torch.serve'} <= set(sys.modules)\n"
+        "assert {'swem_tpu_torch.engine', 'swem_tpu_torch.serve', 'swem_tpu_torch.registry',\n"
+        "        'swem_tpu_torch.eval.evaluator', 'swem_tpu_torch.eval.__main__'} <= set(sys.modules)\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )

@@ -181,6 +181,27 @@ def test_injectable_runner_matches(pair):
     assert agreement(got, ref) >= 0.999
 
 
+def test_runner_takes_negative_stride_host_views(pair):
+    """``np.flip`` views (negative strides) of the frames, init_mask, active
+    and an injection map with its new-slot flags, as the evaluator's flip
+    pass hands them: the same bits as their contiguous copies."""
+    _, _, port = pair
+    frames, init_mask, _ = uint8_video(60, 5)
+    first, idx_map, _ = late_third_object(init_mask)
+    views = (np.flip(frames, axis=-2), np.flip(first, axis=-2),
+             np.flip(np.asarray([[False, True, True]]), axis=-1))
+    inject = (np.flip(idx_map, axis=-1), np.flip(np.asarray([[True, False, False]]), axis=-1))
+    assert all(min(a.strides) < 0 for a in views + inject)
+    runner = engine.ChunkedVideoRunner(port, OUT, chunk=2, injectable=True, preprocess=port_pre)
+    bases = em.init_bases(torch.Generator().manual_seed(0), 1, 3, port.cfg.keydim,
+                          port.cfg.valdim, port.cfg.num_bases)
+    got = runner(None, *views, {2: inject}, bases=bases)
+    ref = runner(None, *(np.ascontiguousarray(a) for a in views),
+                 {2: tuple(np.ascontiguousarray(a) for a in inject)}, bases=bases)
+    np.testing.assert_array_equal(got, ref)
+    assert (got[1, 0][inject[0][0] > 0] == 3).all()
+
+
 def test_runner_single_frame_and_bad_calls(pair):
     """T = 1 predicts nothing; a tensor video raises TypeError; injections
     without ``injectable`` raise ValueError."""
