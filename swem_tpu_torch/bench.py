@@ -1,4 +1,5 @@
-"""The port's benchmark: whole-video, chunked and online inference at 480p.
+"""The port's benchmark: whole-video, chunked and online inference at 480p,
+and the S3 train step.
 
     python -m swem_tpu_torch.bench [--dtype bfloat16|float32]
     python -m swem_tpu_torch.bench --device cpu --small   # smoke test only
@@ -25,6 +26,15 @@ configuration) with seeded random weights, B = 1, two box objects.
   ``start``: the wall p50/p95 of a push that returns its map to the host,
   and the device's busy ms per push under ``torch.profiler``
   (``serve_latency_ms``, the JAX package's semantics).
+- train: the S3 train step (``train.trainer.make_train_step``, AdamW,
+  bootstrapped CE + IoU) at the flagship width, batch 8, 384x384 crops,
+  T = 3, ``scripts/train_bench.py``'s ``step_ms``: a synthetic uint8 batch
+  (two boxes) staged on the device, two warm-up steps, then K = 10 steps
+  with one sync at the end. ``train_step_ms`` is their wall over K,
+  ``train_step_ms_median`` the median of the per-step spans between CUDA
+  events recorded before each step (no sync between them),
+  ``train_samples_per_s`` = batch / ``train_step_ms``, ``train_peak_mem_mb``
+  the peak device memory over the K steps.
 
 Prints one JSON line: ``bench.py``'s keys ``metric``, ``value`` (the median
 ``scan_fps``), ``unit``, ``vs_baseline`` (over the paper's 36 frames/s on a
@@ -32,11 +42,13 @@ V100) and ``scan_fps``, plus ``dtype``, every scan run's frames/s, their
 min and max, the peak device memory over the timed scan runs
 (``run_video`` key-encodes all T - 1 frames in one batch, so it grows with
 T), the runner's median frames/s, device frames/s and peak device memory
-(bounded by the chunk), the serve numbers and the device: the
+(bounded by the chunk), the serve numbers, the train numbers and the
+device: the
 ``nvidia-smi`` name and power limit on CUDA. The device-derived fields are
-null on the CPU. TF32 is off through the engine's own scope. ``--small``
-runs a narrow model at 64x64 (scan T = 3, runner T = 7 in chunks of 4, 3
-pushes) for the CPU test; its numbers measure nothing.
+null on the CPU. TF32 is off through the engine's and the train step's own
+scopes. ``--small`` runs a narrow model at 64x64 (scan T = 3, runner T = 7
+in chunks of 4, 3 pushes, train batch 2 at 32x32, K = 2) for the CPU test;
+its numbers measure nothing.
 """
 
 from __future__ import annotations
@@ -51,7 +63,7 @@ import numpy as np
 import torch
 
 from swem_tpu_torch import engine
-from swem_tpu_torch.config import ModelConfig
+from swem_tpu_torch.config import ModelConfig, SWEMConfig
 from swem_tpu_torch.models.swem import SWEM
 from swem_tpu_torch.ops.resize import resize
 from swem_tpu_torch.serve import StreamingSession, measure_device_latency, measure_latency
@@ -64,6 +76,7 @@ RUNS = 5  # timed scan runs, as bench.py
 RUNNER_RUNS = 4  # timed runner calls, as bench.py
 SMALL = dict(backbone="resnet18", keydim=16, valdim=32, num_bases=8, num_em_iters=2, topl=4,
              mdim=32)
+TRAIN_STEPS = 10  # timed train steps
 
 
 def box_mask(out_size, n_objs: int) -> np.ndarray:
@@ -179,6 +192,80 @@ def bench_serve(cfg: ModelConfig, state_dict, n_push: int, raw_hw, in_size, out_
     return {"p50": wall["p50"], "p95": wall["p95"], "device_ms": busy}
 
 
+def train_batch(batch: int, n_frames: int, crop: int, n_objs: int, seed: int = 0) -> dict:
+    """A synthetic host batch in the loader's layout: uint8 noise frames,
+    two boxes in every frame's slot labels, every slot valid."""
+    rng = np.random.default_rng(seed)
+    label = np.zeros((batch, n_frames, crop, crop), np.uint8)
+    for k in range(min(n_objs, 2)):
+        a, b = (crop * (1 + 4 * k)) // 12, (crop * (5 + 4 * k)) // 12
+        label[:, :, a:b, a:b + crop // 6] = k + 1
+    return {"frames": rng.integers(0, 256, (batch, n_frames, crop, crop, 3), dtype=np.uint8),
+            "label": label, "valid_obj": np.ones((batch, n_objs + 1), np.float32)}
+
+
+def time_train_steps(step, k: int, device: torch.device) -> dict:
+    """Run ``step()`` ``k`` times with one sync at the end -> the wall per
+    step (``ms``), the per-step spans between events recorded before each
+    step (``ms_runs``, CUDA only: device-timeline spans; on the CPU the host
+    spans) and the last step's losses."""
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize(device)
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(k + 1)]
+    marks = []
+    t0 = time.perf_counter()
+    for i in range(k):
+        if cuda:
+            events[i].record()
+        else:
+            marks.append(time.perf_counter())
+        losses = step()
+    if cuda:
+        events[k].record()
+        torch.cuda.synchronize(device)
+        runs = [events[i].elapsed_time(events[i + 1]) for i in range(k)]
+    else:
+        marks.append(time.perf_counter())
+        runs = [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
+    wall = (time.perf_counter() - t0) * 1e3 / k
+    return {"ms": wall, "ms_runs": runs, "losses": losses}
+
+
+def bench_train(cfg: SWEMConfig, batch: dict, steps: int, device=None) -> tuple:
+    """The train step of ``cfg`` (its remat is ``cfg.solver.remat``) on the
+    host ``batch`` (the loader's layout) staged on the device: two warm-up
+    steps, then ``steps`` timed ones (see the module note). Returns (the
+    numbers, ``one_step``: one more step on the same state and batch)."""
+    from swem_tpu_torch.train.trainer import (batch_to_device, create_train_state,
+                                              make_train_step, step_generator)
+
+    model = SWEM(cfg.model, device=device).init_weights(0)
+    dev = model.device
+    state = create_train_state(model, cfg.solver)
+    step = make_train_step(cfg, remat=cfg.solver.remat)
+    staged = batch_to_device(batch, dev)
+    gen = step_generator(0, 0)
+
+    def one_step():
+        return step(state, staged, gen)
+
+    for _ in range(2):  # warm-up: cuDNN plans, kernel builds, allocator
+        one_step()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    res = time_train_steps(one_step, steps, dev)
+    loss = float(res["losses"]["total_loss"])
+    if not np.isfinite(loss):
+        raise RuntimeError(f"train step: non-finite loss {loss}")
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 20 if dev.type == "cuda" else None
+    n = batch["frames"].shape[0]
+    return {"ms": res["ms"], "ms_runs": res["ms_runs"],
+            "ms_median": float(np.median(res["ms_runs"])),
+            "samples_per_s": n / res["ms"] * 1e3, "peak_mem_mb": peak}, one_step
+
+
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--dtype", default="bfloat16", choices=["bfloat16", "float32"],
@@ -192,16 +279,20 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         cfg = ModelConfig(dtype=args.dtype, **SMALL)
         T, in_size, out_size = 3, (64, 64), (64, 64)
         runner_T, chunk, n_push, raw_hw = 7, 4, 3, (64, 64)
+        train_b, crop, train_k = 2, 32, 2
     else:
         cfg = ModelConfig(dtype=args.dtype)
         T, in_size, out_size = 30, (480, 864), (480, 854)
         runner_T, chunk, n_push, raw_hw = 69, 16, 24, (480, 854)
+        train_b, crop, train_k = 8, 384, TRAIN_STEPS
     model = SWEM(cfg, device=args.device).init_weights(0)
     res = bench_scan(model, T, in_size, out_size)
     runner = bench_runner(model, runner_T, chunk, raw_hw, in_size, out_size)
     state_dict, dev = model.state_dict(), model.device
     del model  # the session loads its own copy of the weights
     serve = bench_serve(cfg, state_dict, n_push, raw_hw, in_size, out_size, args.device)
+    train, _ = bench_train(SWEMConfig(model=cfg), train_batch(train_b, 3, crop, cfg.max_objs),
+                           train_k, args.device)
     median = float(np.median(res["fps"]))
     out = {
         "metric": "swem_480p_inference_fps",
@@ -220,6 +311,10 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         "serve_latency_ms": serve["device_ms"],
         "serve_wall_p50_ms": serve["p50"],
         "serve_wall_p95_ms": serve["p95"],
+        "train_step_ms": train["ms"],
+        "train_step_ms_median": train["ms_median"],
+        "train_samples_per_s": train["samples_per_s"],
+        "train_peak_mem_mb": train["peak_mem_mb"],
         "device": device_line(dev),
     }
     print(json.dumps(out), flush=True)

@@ -1,5 +1,5 @@
 """Configuration: the port's own copies of ``swem_tpu.config``'s dataclasses,
-with the fields that inference and the evaluator read.
+with the fields that inference, the evaluator and training read.
 
 The port has no kernel routing switch: on a CUDA tensor the EM loop and the
 memory read always run through the hand-written kernels, on a CPU tensor
@@ -8,6 +8,7 @@ through their plain PyTorch versions.
 
 from __future__ import annotations
 
+import dataclasses
 import threading
 from contextlib import contextmanager
 from dataclasses import dataclass, field
@@ -44,6 +45,9 @@ class ModelConfig:
     # as in the reference, at n_kernel = 0)
     n_kernel: int = 0
     kernel_sigma: float = 7.0
+    # random memory-base dropout of the value read, training only (0.0 in
+    # the reference)
+    p_drop: float = 0.0
 
     def __post_init__(self):
         if self.dtype not in DTYPES:
@@ -56,16 +60,70 @@ class ModelConfig:
 
 @dataclass(frozen=True)
 class DataConfig:
-    seed: int = 123  # seeds each video's initial EM bases at evaluation
+    """Training data and loader (``swem_tpu.config.DataConfig``)."""
+
+    seed: int = 123  # the loader's and the train step's draws; evaluation bases
+    num_frames: int = 3  # frames per training clip
+    max_num_objs: int = 2
+    only_valid: bool = True
+    pretrain_sets: Sequence[str] = ("BIG_small", "HRSOD_small", "FSS", "ECSSD", "DUTS")
+    pretrain_set_ratio: Sequence[int] = (5, 5, 1, 1, 1)
+    maintrain_sets: Sequence[str] = ("DAVIS17", "YTVOS19")
+    data_freq: Sequence[int] = (1, 1)
+    data_root: str = "datasets"  # holds DAVIS/, YTVOS19/, STCN_PreTrain/
+    vid_load_size: int = 480  # short side at load time
+    vid_crop_size: Tuple[int, int] = (384, 384)
+    davis_max_skip: int = 25
+    davis_samples_per_video: int = 5
+    ytvos_max_skip: int = 5
+    ytvos_samples_per_video: int = 1
+    batch_size: int = 8  # global batch
+    num_workers: int = 8
 
 
 @dataclass(frozen=True)
 class SolverConfig:
+    """Optimizer and schedule (``swem_tpu.config.SolverConfig``)."""
+
     stage: int = 0  # 0 pretrain, 1 DAVIS, 2 YTVOS, 3 DAVIS+YTVOS
+    base_lr: float = 2e-5
+    pretrain_iters: Tuple[int, int] = (150000, 300000)  # (milestone, max_iter)
+    maintrain_iters: Tuple[int, int] = (125000, 150000)
+    davis_iters: Tuple[int, int] = (50000, 60000)
+    gamma: float = 0.1
+    optimizer: str = "AdamW"  # 'SGD' | 'Adam' | 'AdamW'
+    momentum: Tuple[float, float] = (0.9, 0.999)
+    weight_decay: float = 5e-4
+    # activation recomputation: None | 'encoder' (the key encode) | 'block'
+    # (each supervised frame's whole block), through torch.utils.checkpoint
+    remat: Optional[str] = None
+
+    def __post_init__(self):
+        if self.remat not in (None, "encoder", "block"):
+            raise ValueError(f"remat must be None, 'encoder' or 'block', got {self.remat!r}")
 
     @property
     def stage_name(self) -> str:
         return f"S{self.stage}"
+
+    def stage_iters(self) -> Tuple[int, int]:
+        if self.stage == 0:
+            return tuple(self.pretrain_iters)
+        if self.stage == 1:
+            return tuple(self.davis_iters)
+        return tuple(self.maintrain_iters)
+
+
+@dataclass(frozen=True)
+class LossConfig:
+    """Training loss (``swem_tpu.config.LossConfig``)."""
+
+    name: str = "boots_ce"  # 'ce' | 'boots_ce'
+    bs_ratio: float = 0.30  # final top-p fraction
+    bs_period: Tuple[int, int] = (20000, 70000)  # (start_warm, end_warm)
+    aux: Optional[str] = "iou"  # None | 'iou' | 'lovasz'
+    aux_ratio: float = 1.0
+    only_valid_obj: bool = True
 
 
 @dataclass(frozen=True)
@@ -88,14 +146,30 @@ class EvalConfig:
 
 @dataclass(frozen=True)
 class SWEMConfig:
-    """Everything an evaluation reads (``swem_tpu.config.SWEMConfig``)."""
+    """The experiment (``swem_tpu.config.SWEMConfig``)."""
 
     model: ModelConfig = field(default_factory=ModelConfig)
     data: DataConfig = field(default_factory=DataConfig)
     solver: SolverConfig = field(default_factory=SolverConfig)
+    loss: LossConfig = field(default_factory=LossConfig)
     eval: EvalConfig = field(default_factory=EvalConfig)
     exp_name: str = "swem"
-    log_dir: str = "logs"  # results go to <log_dir>/<model>/<stage>/<exp_name>/results
+    log_dir: str = "logs"  # runs go to <log_dir>/<model>/<stage>/<exp_name>/
+    log_period: int = 100
+    save_period: int = 5000
+    vis_period: int = 1000  # overlay image grids to tensorboard (0 = off)
+    resume: Optional[str] = None
+    from_scratch: bool = True
+
+    def replace(self, **kw) -> "SWEMConfig":
+        return dataclasses.replace(self, **kw)
+
+
+def single_object_config(cfg: SWEMConfig) -> SWEMConfig:
+    """``max_num_objs == 1`` switches the model to single-object mode."""
+    if cfg.data.max_num_objs == 1:
+        return cfg.replace(model=dataclasses.replace(cfg.model, single_object=True, max_objs=1))
+    return cfg
 
 
 def compute_dtype(cfg: ModelConfig) -> torch.dtype:

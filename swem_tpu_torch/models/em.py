@@ -4,13 +4,15 @@ Shapes follow the JAX package: bases ``(B, N, 2, C, L)`` with ``N`` the
 static object-slot count and branch axis 2 = [bg, fg]. Inactive slots carry
 all-zero masks, which makes their EM update a no-op.
 
-The W/E/M loop runs in ``ops/em_kernel.em_loop`` and the affinity read in
+The W/E/M loop runs in ``ops/em_kernel.em_loop`` and the inference read in
 ``ops/read_kernel.read_affinity``: hand-written kernels on a CUDA tensor,
-their plain versions on a CPU tensor. The read with Gaussian locality
-reweighting (``n_kernel > 0``, an inference option of the configuration) is
-another function, ``_read_local``, in PyTorch ops on every device, as it is
-XLA code beside the TPU kernel in the JAX package. Only the final ``nu``
-update carries gradients, as in the reference.
+their plain versions on a CPU tensor. The training read (differentiable,
+with the optional ``p_drop`` dropout) and the read with Gaussian locality
+reweighting (``n_kernel > 0``) are one other function, ``_read_ops``, in
+PyTorch ops on every device, as they are XLA code beside the TPU kernel in
+the JAX package, which never routes a training read to its kernel. Of the
+memorize, only the final ``nu`` update carries gradients, as in the
+reference; neither kernel has a backward.
 """
 
 from __future__ import annotations
@@ -138,7 +140,9 @@ def _perm_inv_feat(exp_aff: torch.Tensor, topl: int) -> torch.Tensor:
 
     exp_aff (B,N,2,Lm,P) non-negative -> S (B,N,P,2*topl), channels
     [bg_ratio_0..k-1, (1-bg_ratio)_0..k-1]. The prefix sums of the sorted
-    top-l values equal those of the JAX package's argmax-delete scan.
+    top-l values equal those of the JAX package's argmax-delete scan, and
+    ``topk``'s backward, a scatter to the unique selected indices, is the
+    gradient that the JAX package's ``_topk_vals`` builds by hand.
     """
     tops = torch.topk(exp_aff, topl, dim=3, sorted=True).values  # (B,N,2,topl,P)
     feat = torch.cumsum(tops, dim=3)
@@ -164,38 +168,59 @@ def _gaussian_kernels(aff: torch.Tensor, hw: Tuple[int, int], n_kernel: int, sig
     return torch.exp(torch.amax(-d2 / (2.0 * sigma ** 2), dim=-1) / tau)
 
 
-def _read_local(qk, mk, mv, base_valid, *, tau: float, n_kernel: int, sigma: float,
-                hw: Tuple[int, int]):
-    """The memory read with Gaussian locality reweighting (PyTorch ops on
-    every device: a different function from K2's read, selected by
-    ``n_kernel > 0``). Same arguments as ``read_memory``; returns
-    (mem_out (B,N,P,Cv), exp_aff (B,N,2,Lm,P) unweighted)."""
+def _read_ops(qk, mk, mv, base_valid, *, tau: float, n_kernel: int = 0, sigma: float = 7.0,
+              hw: Optional[Tuple[int, int]] = None, keep: Optional[torch.Tensor] = None):
+    """The memory read in PyTorch ops on every device, differentiable: the
+    JAX package's XLA read beside its TPU kernel, with its two optional
+    terms. ``n_kernel > 0`` weights the affinities by Gaussian locality on
+    the query grid ``hw`` (inference); ``keep`` (B,N,1,Lm,1) bool drops
+    whole bases from the value read's normalization (``p_drop``, training).
+    Same arguments as ``read_memory``; returns (mem_out (B,N,P,Cv),
+    exp_aff (B,N,2,Lm,P) unweighted and undropped)."""
     aff = torch.matmul(l2norm(mk, -2).transpose(-1, -2),
                        l2norm(qk, -1).transpose(1, 2)[:, None, None])  # (B,N,2,Lm,P)
     valid = base_valid[..., None]
     aff = aff.masked_fill(~valid, float("-inf"))
     maxes = aff.amax(dim=(2, 3), keepdim=True)  # joint over {bg,fg} x Lm
+    # the where also guards an object with no valid base (max = -inf -> nan)
     exp_aff = torch.where(valid, torch.exp((aff - maxes) / tau), 0.0)
-    weighted = exp_aff * _gaussian_kernels(aff, hw, n_kernel, sigma, tau)
-    p_aff = weighted / (weighted.sum(dim=(2, 3), keepdim=True) + 1e-8)  # the reference's epsilon
+    if n_kernel > 0:
+        weighted, eps = exp_aff * _gaussian_kernels(aff, hw, n_kernel, sigma, tau), 1e-8
+    elif keep is not None:
+        weighted, eps = exp_aff * keep.to(exp_aff.dtype), 1e-6
+    else:
+        weighted, eps = exp_aff, 1e-30
+    p_aff = weighted / (weighted.sum(dim=(2, 3), keepdim=True) + eps)  # the reference's epsilons
     return torch.einsum("bnsvl,bnslp->bnpv", mv, p_aff), exp_aff
 
 
+def draw_keep(generator: Optional[torch.Generator], batch: int, n_objs: int, n_bases: int,
+              p_drop: float, device="cpu") -> torch.Tensor:
+    """The ``p_drop`` keep mask (B,N,1,Lm,1) bool over both banks' Lm bases,
+    drawn on the CPU like ``init_bases``."""
+    u = torch.rand((batch, n_objs, 1, n_bases, 1), generator=generator)
+    return (u > p_drop).to(device)
+
+
 def read_memory(qk, mk, mv, base_valid, *, tau: float, topl: int, n_kernel: int = 0,
-                sigma: float = 7.0, hw: Optional[Tuple[int, int]] = None):
-    """Attention-style memory read (inference; no memory dropout).
+                sigma: float = 7.0, hw: Optional[Tuple[int, int]] = None, train: bool = False,
+                keep: Optional[torch.Tensor] = None):
+    """Attention-style memory read.
 
     qk (B,P,Ck) raw query keys; mk (B,N,2,Ck,Lm) raw prototypes;
-    mv (B,N,2,Cv,Lm); base_valid (B,N,2,Lm) bool. ``n_kernel > 0`` adds the
-    Gaussian locality reweighting on the query grid ``hw`` = (h, w), h*w = P;
-    otherwise the read is K2's (``read_affinity``).
+    mv (B,N,2,Cv,Lm); base_valid (B,N,2,Lm) bool. The inference read is K2's
+    (``read_affinity``, no gradients on the card). ``train`` takes the
+    differentiable read in PyTorch ops, with ``keep`` (B,N,1,Lm,1) the
+    optional ``p_drop`` keep mask; ``n_kernel > 0`` takes it too, with the
+    Gaussian locality reweighting on the query grid ``hw`` = (h, w). The
+    top-l feature always uses the undropped, unweighted affinities.
     Returns (mem_out (B,N,P,Cv), S (B,N,P,2*topl)).
     """
-    if n_kernel > 0:
-        if hw is None:
-            raise ValueError("read_memory: n_kernel > 0 needs hw=(h, w) of the query grid")
-        mem_out, exp_aff = _read_local(qk, mk, mv, base_valid, tau=tau, n_kernel=n_kernel,
-                                       sigma=sigma, hw=hw)
+    if n_kernel > 0 and hw is None:
+        raise ValueError("read_memory: n_kernel > 0 needs hw=(h, w) of the query grid")
+    if train or n_kernel > 0:
+        mem_out, exp_aff = _read_ops(qk, mk, mv, base_valid, tau=tau, n_kernel=n_kernel,
+                                     sigma=sigma, hw=hw, keep=keep)
     else:
         mem_out, exp_aff = read_affinity(qk, mk, mv, base_valid, tau=tau)
     return mem_out, _perm_inv_feat(exp_aff, topl)

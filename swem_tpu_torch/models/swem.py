@@ -116,19 +116,26 @@ class SWEM(nn.Module):
         )
         return mv.reshape((frame.shape[0], N) + mv.shape[1:])
 
-    def match(self, qk16, qv16, mem: em.VOSMemory):
+    def match(self, qk16, qv16, mem: em.VOSMemory, train: bool = False,
+              keep: Optional[torch.Tensor] = None):
         """Memory read + GLU fusion -> object context (B,N,Cv,h,w).
 
         qk16 (B,Ck,h,w); qv16 (B,Cv,h,w). The read and the concat run in
         float32; the fusion's input is cast back to the compute dtype.
+        ``train`` takes the differentiable read; with ``cfg.p_drop > 0`` it
+        needs ``keep``, the (B,N,1,2L,1) keep mask (``em.draw_keep``), drawn
+        by the caller so that a recomputed block drops the same bases.
         """
         B, _, h, w = qk16.shape
         mk, mv, base_valid = em.gather_memory(mem)
         N = mk.shape[1]
+        if train and self.cfg.p_drop > 0 and keep is None:
+            raise ValueError("SWEM.match: train with p_drop > 0 needs the keep mask")
         mem_out, S = em.read_memory(qk16.flatten(2).transpose(1, 2).float(), mk, mv, base_valid,
                                     tau=self.cfg.em_tau, topl=self.cfg.topl_eff,
                                     n_kernel=self.cfg.n_kernel, sigma=self.cfg.kernel_sigma,
-                                    hw=(h, w))
+                                    hw=(h, w), train=train,
+                                    keep=keep if train and self.cfg.p_drop > 0 else None)
         qv = qv16.flatten(2).transpose(1, 2).float()[:, None].expand_as(mem_out)
         feats = torch.cat([mem_out, qv, S], dim=-1)  # (B,N,P,2Cv+2topl)
         feats = feats.reshape(B * N, h, w, feats.shape[-1]).permute(0, 3, 1, 2)

@@ -5,6 +5,8 @@ plain C interface, loaded through ``ctypes``. Libraries go under the
 checkout's ``build/swem_tpu_torch/`` (listed in ``.gitignore``), named by a
 hash of the sources so an edited kernel is rebuilt. ``build`` starts one
 ``nvcc`` per source, all at once. Nothing is compiled at import time.
+``refuse_gradients`` is the wrappers' shared guard: the kernels have no
+backward.
 """
 
 from __future__ import annotations
@@ -82,6 +84,27 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, dict]:
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return report
+
+
+def refuse_gradients(kernel: str, jax_source: str, **inputs) -> None:
+    """Raise if gradients are enabled and any of ``inputs`` requires grad.
+
+    A kernel writes its outputs through ``ctypes`` into fresh tensors, which
+    carry no autograd graph: a differentiable caller would lose its
+    gradients without a word. Neither kernel has a backward in the JAX
+    package either (``jax_source``), so the caller must run it under
+    ``torch.no_grad()`` or on detached inputs.
+    """
+    import torch
+
+    if not torch.is_grad_enabled():
+        return
+    needing = [name for name, t in inputs.items() if t.requires_grad]
+    if needing:
+        raise RuntimeError(
+            f"{kernel} kernel: {', '.join(needing)} require grad, but the kernel has no "
+            f"backward (nor has its TPU counterpart in {jax_source}); call it under "
+            f"torch.no_grad() or on detached inputs")
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -98,10 +98,14 @@ def em_loop(x: torch.Tensor, masks: torch.Tensor, kappa0: torch.Tensor,
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
     or raises. The kernel takes Ck divisible by 16, L divisible by 8, and
-    shapes whose tile fits one block's shared memory.
+    shapes whose tile fits one block's shared memory. It has no backward (the
+    loop runs under ``no_grad`` in ``em_update``): an input that requires
+    grad raises while gradients are enabled.
     """
     if x.device.type == "cpu":
         return em_loop_plain(x, masks, kappa0, zita0, n_iters=n_iters, tau=tau)
+    build.refuse_gradients("em_loop", "swem_tpu/ops/em_pallas.py", x=x, masks=masks,
+                           kappa0=kappa0, zita0=zita0)
     B, P, Ck = x.shape
     N, L = masks.shape[1], kappa0.shape[-1]
     if Ck % 16 or L % 8 or Ck < 16 or L < 8:

@@ -64,10 +64,13 @@ def read_normalized(qk: torch.Tensor, mk: torch.Tensor, mv: torch.Tensor,
     qk (B,P,Ck) and mk (B,N,2,Ck,Lm) l2-normalized; mv (B,N,2,Cv,Lm) float32;
     base_valid (B,N,2,Lm) bool -> (mem_out (B,N,P,Cv), exp_aff (B,N,2,Lm,P)).
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    or raises. The kernel takes Ck and Lm divisible by 4 and 2 * Lm <= 1024.
+    or raises. The kernel takes Ck and Lm divisible by 4 and 2 * Lm <= 1024,
+    and has no backward: an input that requires grad raises while gradients
+    are enabled.
     """
     if qk.device.type == "cpu":
         return read_plain(qk, mk, mv, base_valid, tau=tau)
+    build.refuse_gradients("read_memory", "swem_tpu/ops/read_pallas.py", qk=qk, mk=mk, mv=mv)
     B, P, Ck = qk.shape
     N, Lm, Cv = mk.shape[1], mk.shape[-1], mv.shape[3]
     expect = {"qk": ((B, P, Ck), torch.float32), "mk": ((B, N, 2, Ck, Lm), torch.float32),

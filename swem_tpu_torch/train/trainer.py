@@ -1,0 +1,212 @@
+"""The training step, counterpart of ``swem_tpu/train/trainer.py``.
+
+One step: frame-0 init, T-1 supervised frames (read, decode, and on every
+frame but the last value-encode the prediction and memorize it), the loss,
+``backward`` and the optimizer update. The EM memory is an explicit
+``VOSMemory`` carried through the Python loop; its W/E/M loop runs in K1
+(``ops/em_kernel.em_loop``) under ``no_grad``, as the JAX package runs it
+under ``stop_gradient``: only the ``nu`` update carries gradients. Reads
+take the differentiable read in PyTorch ops (``SWEM.match(train=True)``),
+never K2, as the JAX package never routes a training read to its kernel.
+
+Batch layout (channel-last, tensors on the model's device):
+  frames:    (B, T, H, W, 3) uint8, or float already in [0, 1]
+  label:     (B, T, H, W) integer slot labels of every frame
+  valid_obj: (B, N+1) float {0,1} validity including the background channel
+  masks:     optional (B, T, H, W, N+1) one-hot ground truth; derived from
+             ``label`` on the device when absent (the loader ships uint8)
+
+The step runs under ``config.full_float32`` (TF32 off for float32 work, in
+the backward pass too), with gradients on.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from functools import partial
+from typing import Callable, Dict, Optional, Sequence
+
+import numpy as np
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from swem_tpu_torch.config import SWEMConfig, SolverConfig, full_float32
+from swem_tpu_torch.engine import _flat_mv, _flat_qk
+from swem_tpu_torch.models import em
+from swem_tpu_torch.models.swem import SWEM, hard_mask_from_pred, prepare_em_masks
+from swem_tpu_torch.train.losses import make_criterion
+from swem_tpu_torch.train.solver import make_optimizer
+
+
+@dataclass
+class TrainState:
+    """The model, its optimizer and LR scheduler, and the step (a host int)."""
+
+    model: SWEM
+    optimizer: torch.optim.Optimizer
+    scheduler: torch.optim.lr_scheduler.MultiStepLR
+    step: int = 0
+
+
+def create_train_state(model: SWEM, solver: SolverConfig) -> TrainState:
+    opt, sched = make_optimizer(solver, model.parameters())
+    return TrainState(model=model.train(), optimizer=opt, scheduler=sched, step=0)
+
+
+def step_generator(seed: int, step: int) -> torch.Generator:
+    """The draws of step ``step`` (initial bases, then the ``p_drop`` keep
+    masks frame by frame), a function of (seed, step) alone, so that a
+    resumed run draws what an uninterrupted one would."""
+    state = np.random.SeedSequence([seed, step]).generate_state(2, np.uint32)
+    return torch.Generator().manual_seed(int(state[0]) << 32 | int(state[1]))
+
+
+def batch_to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
+    """Host arrays -> tensors on ``device`` (pinned and asynchronous on CUDA)."""
+    device = torch.device(device)
+    out = {}
+    for k, v in batch.items():
+        t = v if isinstance(v, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(v))
+        if device.type == "cuda" and t.device.type == "cpu":
+            t = t.pin_memory().to(device, non_blocking=True)
+        out[k] = t.to(device)
+    return out
+
+
+def _model_inputs(batch: Dict[str, torch.Tensor], n_slots: int):
+    """(frames float32 in [0, 1], frame-0 one-hot (B,H,W,N+1), label long).
+
+    uint8 frames are divided by 255 on the device, bit for bit the host
+    conversion; the frame-0 one-hot comes from ``label`` unless the batch
+    has ``masks``."""
+    frames = batch["frames"]
+    if frames.dtype == torch.uint8:
+        frames = frames.float() / 255.0
+    label = batch["label"].long()
+    if "masks" in batch:
+        init_mask = batch["masks"][:, 0].float()
+    else:
+        init_mask = (label[:, 0, ..., None] == torch.arange(n_slots, device=label.device)).float()
+    return frames, init_mask, label
+
+
+def _unrolled_forward(model: SWEM, frames, init_mask, valid_obj, bases: em.Bases,
+                      keeps: Optional[Sequence[torch.Tensor]] = None,
+                      remat: Optional[str] = None) -> torch.Tensor:
+    """Frame-0 init + supervised unroll over frames 1..T-1 -> stacked logits
+    (B, T-1, H, W, N+1).
+
+    ``bases``: the initial EM bases (batch B). ``keeps``: the T-1 ``p_drop``
+    keep masks, one per supervised frame, drawn by the caller (needed when
+    ``cfg.p_drop > 0``). ``remat``: ``"encoder"`` recomputes each key encode
+    in the backward pass, ``"block"`` each supervised frame's whole block
+    (whose memorize then launches K1 again); the keep masks are inputs of
+    the block, so the recomputation drops the same bases.
+    """
+    cfg = model.cfg
+    B, T, H, W, _ = frames.shape
+    out_size = (H, W)
+    active = valid_obj[:, 1:] > 0.5
+    encode = model.encode_frame
+    if remat == "encoder":
+        encode = partial(checkpoint, model.encode_frame, use_reentrant=False)
+
+    qk16, _, s16, _, _, vf0 = encode(frames[:, 0])
+    mv16 = model.encode_value(frames[:, 0], init_mask, s16, vf0)
+    h, w = qk16.shape[-2:]
+    mem = em.fresh_memory(bases)
+    em_masks = prepare_em_masks(init_mask, init_mask, (h, w))
+    mem = em.memorize(mem, _flat_qk(qk16), _flat_mv(mv16), em_masks, active,
+                      n_iters=cfg.num_em_iters, tau=cfg.em_tau)
+
+    def frame_block(mem, frame, keep, last: bool):
+        """One supervised frame: encode -> match -> decode (-> memorize)."""
+        qk16, qv16, s16, skip8, skip4, vf = encode(frame)
+        context = model.match(qk16, qv16, mem, train=True, keep=keep)
+        logits, pred_mask = model.decode(context, skip8, skip4, valid_obj[:, 1:], out_size)
+        if not last:
+            hard = hard_mask_from_pred(pred_mask)
+            mv16 = model.encode_value(frame, pred_mask, s16, vf)
+            em_masks = prepare_em_masks(hard, pred_mask, (h, w))
+            mem = em.memorize(mem, _flat_qk(qk16), _flat_mv(mv16), em_masks, active,
+                              n_iters=cfg.num_em_iters, tau=cfg.em_tau)
+        return mem, logits
+
+    logits_list = []
+    for i in range(1, T):
+        keep = None if keeps is None else keeps[i - 1]
+        if remat == "block":
+            mem, logits = checkpoint(frame_block, mem, frames[:, i], keep, i == T - 1,
+                                     use_reentrant=False)
+        else:
+            mem, logits = frame_block(mem, frames[:, i], keep, i == T - 1)
+        logits_list.append(logits)
+    return torch.stack(logits_list, dim=1)
+
+
+def draw_step(model: SWEM, generator: Optional[torch.Generator], batch_size: int,
+              n_frames: int):
+    """One step's draws from ``generator``: the initial bases (batch B),
+    then, with ``p_drop > 0``, the keep masks of the T-1 supervised frames.
+    Returns (bases, keeps or None), on the model's device."""
+    cfg = model.cfg
+    bases = em.init_bases(generator, batch_size, cfg.max_objs, cfg.keydim, cfg.valdim,
+                          cfg.num_bases, device=model.device)
+    keeps = None
+    if cfg.p_drop > 0:
+        keeps = [em.draw_keep(generator, batch_size, cfg.max_objs, 2 * cfg.num_bases,
+                              cfg.p_drop, device=model.device) for _ in range(n_frames - 1)]
+    return bases, keeps
+
+
+def make_train_step(cfg: SWEMConfig, remat: Optional[str] = None) -> Callable:
+    """The train step: ``step(state, batch, generator=None, *, bases=None,
+    keeps=None) -> losses``.
+
+    Updates ``state`` in place (parameters, optimizer, scheduler, step + 1)
+    and returns the loss terms as detached device tensors (``p`` a host
+    float), so that the caller syncs when it chooses. The initial bases
+    and keep masks come from ``generator`` unless given (the parity tests
+    hand in the JAX package's draws).
+    """
+    criterion = make_criterion(cfg.loss)
+
+    def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
+                   generator: Optional[torch.Generator] = None, *,
+                   bases: Optional[em.Bases] = None,
+                   keeps: Optional[Sequence[torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
+        model = state.model
+        with torch.enable_grad(), full_float32():
+            frames, init_mask, label = _model_inputs(batch, model.cfg.max_objs + 1)
+            valid_obj = batch["valid_obj"].float()
+            if bases is None:
+                bases, drawn = draw_step(model, generator, frames.shape[0], frames.shape[1])
+                keeps = drawn if keeps is None else keeps
+            logits = _unrolled_forward(model, frames, init_mask, valid_obj, bases, keeps,
+                                       remat=remat)
+            losses = criterion(logits, label[:, 1:], state.step, valid_obj)
+            state.optimizer.zero_grad(set_to_none=True)
+            losses["total_loss"].backward()
+            state.optimizer.step()
+            state.scheduler.step()
+        state.step += 1
+        return {k: v.detach() if isinstance(v, torch.Tensor) else v for k, v in losses.items()}
+
+    return train_step
+
+
+def make_predict_batch(cfg: SWEMConfig) -> Callable:
+    """Forward-only batch prediction for the training overlays:
+    ``predict(state, batch, generator) -> (B, T-1, H, W) uint8``."""
+
+    @torch.no_grad()
+    def predict(state: TrainState, batch, generator: Optional[torch.Generator] = None):
+        model = state.model
+        with full_float32():
+            frames, init_mask, _ = _model_inputs(batch, model.cfg.max_objs + 1)
+            bases, keeps = draw_step(model, generator, frames.shape[0], frames.shape[1])
+            logits = _unrolled_forward(model, frames, init_mask, batch["valid_obj"].float(),
+                                       bases, keeps)
+        return logits.argmax(dim=-1).to(torch.uint8)
+
+    return predict

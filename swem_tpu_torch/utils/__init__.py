@@ -1,5 +1,6 @@
-"""Logging and the evaluation's frames/s meter (the port's copy of the parts
-of ``swem_tpu/utils/__init__.py`` that the evaluator uses)."""
+"""Logging, the training loss meter and the evaluation's frames/s meter (the
+port's copy of the parts of ``swem_tpu/utils/__init__.py`` that the
+evaluator and the trainer use)."""
 
 from __future__ import annotations
 
@@ -7,6 +8,7 @@ import logging
 import os
 import sys
 import time
+from collections import deque
 from typing import Optional
 
 
@@ -35,6 +37,35 @@ def setup_logger(name: str, save_dir: Optional[str] = None, filename: str = "log
         sh.setFormatter(fmt)
         logger.addHandler(sh)
     return logger
+
+
+class AvgMeter:
+    """Windowed running average of the last ``window`` values (all of them
+    at ``window <= 0``), with the global average beside it."""
+
+    def __init__(self, window: int = 100):
+        self.window = window
+        self.reset()
+
+    def reset(self):
+        self._values = deque(maxlen=self.window if self.window > 0 else None)
+        self.total = 0.0
+        self.count = 0
+
+    def update(self, value: float):
+        self._values.append(float(value))
+        self.total += float(value)
+        self.count += 1
+
+    @property
+    def avg(self) -> float:
+        if not self._values:
+            return 0.0
+        return sum(self._values) / len(self._values)
+
+    @property
+    def global_avg(self) -> float:
+        return self.total / max(1, self.count)
 
 
 class FrameSecondMeter:

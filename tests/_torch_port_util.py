@@ -6,6 +6,7 @@ The port draws seeded random weights; the JAX package's own converter
 """
 
 import numpy as np
+import pytest
 import torch
 
 from swem_tpu.io.torch_import import convert_swem_state_dict
@@ -39,15 +40,17 @@ def jax_bases(cfg, key, n_objs=None) -> Bases:
     return Bases(t(mem.first.kappa), t(mem.first.nu), t(mem.first.zita))
 
 
-def tiny_pair(seed: int = 0, **cfg_kw):
+def tiny_pair(seed: int = 0, jcfg=None, **cfg_kw):
     """(jax model, flax variables as numpy, port model with the same weights).
+
+    ``jcfg``: the JAX package's ``ModelConfig`` (default ``tiny_cfg(**cfg_kw)``).
 
     Two layers are scaled down from the random init so that the comparison
     measures the code and not chaos: keys of norm ~3 instead of ~90 (at
     tau = 0.05 the EM softmax over ~90-norm keys is a hard assignment that
     float32 ulps flip) and decoder logits of O(1) instead of O(100).
     """
-    jcfg = tiny_cfg(**cfg_kw)
+    jcfg = tiny_cfg(**cfg_kw) if jcfg is None else jcfg
     donor = SWEM(port_cfg(jcfg), device="cpu").init_weights(seed)
     with torch.no_grad():
         donor.key_proj.key_proj.weight.mul_(0.03)
@@ -56,3 +59,16 @@ def tiny_pair(seed: int = 0, **cfg_kw):
     port = SWEM(port_cfg(jcfg), device="cpu")
     port.load_state_dict(jax_to_state_dict(variables))
     return JaxSWEM(jcfg), variables, port
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's CPU ops of a test module on one intra-op thread (import this
+    fixture into the module). They are small; on a host loaded by parallel
+    test workers, PyTorch's idle OpenMP threads spinning at each op's
+    barrier slowed such a module about tenfold, and with one thread it
+    keeps its unloaded pace."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)

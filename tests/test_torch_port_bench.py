@@ -1,6 +1,7 @@
 """``python -m swem_tpu_torch.bench`` on the CPU: a smoke test of the command
 and its JSON line (``--small``: a narrow model at 64x64, scan T = 3, runner
-T = 7, 3 pushes; the numbers measure nothing)."""
+T = 7, 3 pushes, two train steps of batch 2 at 32x32; the numbers measure
+nothing)."""
 
 import json
 import os
@@ -14,8 +15,10 @@ ROOT = Path(__file__).resolve().parent.parent
 KEYS = {"metric", "value", "unit", "vs_baseline", "scan_fps", "dtype", "scan_fps_runs",
         "scan_fps_min", "scan_fps_max", "peak_mem_mb", "runner_fps", "runner_device_fps",
         "runner_peak_mem_mb", "serve_latency_ms", "serve_wall_p50_ms", "serve_wall_p95_ms",
+        "train_step_ms", "train_step_ms_median", "train_samples_per_s", "train_peak_mem_mb",
         "device"}
-DEVICE_ONLY = ("peak_mem_mb", "runner_device_fps", "runner_peak_mem_mb", "serve_latency_ms")
+DEVICE_ONLY = ("peak_mem_mb", "runner_device_fps", "runner_peak_mem_mb", "serve_latency_ms",
+               "train_peak_mem_mb")
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
@@ -40,3 +43,5 @@ def test_bench_prints_one_json_line(dtype):
     assert res["scan_fps_min"] == min(runs) and res["scan_fps_max"] == max(runs)
     assert res["value"] == res["scan_fps"] and res["scan_fps_min"] <= res["value"] <= max(runs)
     assert res["vs_baseline"] == pytest.approx(res["value"] / 36.0)
+    assert res["train_step_ms"] > 0 and res["train_step_ms_median"] > 0
+    assert res["train_samples_per_s"] == pytest.approx(2 / res["train_step_ms"] * 1e3)

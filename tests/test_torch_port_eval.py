@@ -40,21 +40,10 @@ from swem_tpu_torch.models import em
 from swem_tpu_torch.models.swem import SWEM
 from swem_tpu_torch.ops import em_kernel, read_kernel
 from _torch_port_util import jax_bases, t, tiny_pair
+from _torch_port_util import one_torch_thread  # noqa: F401  (autouse fixture)
 from test_eval_e2e import build_fake_davis
 
 SEED = 123  # DataConfig.seed of both packages
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """The port's CPU ops in this file on one intra-op thread. They are small;
-    on a host loaded by parallel test workers, PyTorch's idle OpenMP threads
-    spinning at each op's barrier slowed this file about tenfold, and with
-    one thread it keeps its unloaded pace."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -285,8 +274,8 @@ def test_locality_read_matches(n_kernel, sigma):
     np.testing.assert_allclose(got_S.numpy(), np.asarray(ref_S), rtol=1e-5, atol=1e-6)
     assert torch.isfinite(got_out).all() and torch.isfinite(got_S).all()
     assert not got_out[:, 2].any()
-    _, exp_aff = em._read_local(*(t(a) for a in arrays), tau=0.05, n_kernel=n_kernel,
-                                sigma=sigma, hw=hw)
+    _, exp_aff = em._read_ops(*(t(a) for a in arrays), tau=0.05, n_kernel=n_kernel,
+                              sigma=sigma, hw=hw)
     assert not exp_aff[~t(arrays[3])].any()  # every masked base row exactly 0
     plain_out, _ = em.read_memory(*(t(a) for a in arrays), tau=0.05, topl=4)
     assert not torch.allclose(plain_out, got_out)  # the weighting changes the read

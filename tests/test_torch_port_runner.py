@@ -26,6 +26,7 @@ from swem_tpu_torch.models import em
 from swem_tpu_torch.models.swem import SWEM
 from swem_tpu_torch.ops.resize import resize
 from _torch_port_util import jax_bases, t, tiny_pair
+from _torch_port_util import one_torch_thread  # noqa: F401  (autouse fixture)
 from test_model import make_video
 
 # an exact 2x upsample: the two packages' bicubic taps agree to the bit there.

@@ -22,6 +22,7 @@ from swem_tpu_torch.config import full_float32
 from swem_tpu_torch.models import em
 from swem_tpu_torch.serve import StreamingSession, measure_device_latency, measure_latency
 from _torch_port_util import jax_bases, tiny_pair
+from _torch_port_util import one_torch_thread  # noqa: F401  (autouse fixture)
 
 IN = OUT = (64, 64)
 
