@@ -4,7 +4,9 @@
     python3 chip_smoke.py
 
 Needs one CUDA device and the CUDA toolkit; imports nothing of JAX or of
-``swem_tpu``. Phases, each fatal on failure:
+``swem_tpu``. Phase 10 starts rank processes of its own through
+``python -m torch.distributed.run``, each running this script as
+``chip_smoke.py --rank <job> <out_dir> ...``. Phases, each fatal on failure:
 
 0. setup: the card's name and power limit, and PyTorch's TF32 flags as
    found (its defaults, left in force: the engine turns TF32 off in its own
@@ -105,9 +107,10 @@ Needs one CUDA device and the CUDA toolkit; imports nothing of JAX or of
    and YouTube-VOS training layouts (4 videos each, named from the port's
    subset lists, 8 JPEG frames at 480x854 with 2 moving boxes and their
    palette PNGs). The loader alone (8 spawned workers, batch 8, 384x384
-   crops, T = 3): ms per batch, and its variants (1 worker; OpenCV,
-   OpenMP/BLAS or both held to one thread in each of 8 workers).
-   ``Trainer(cfg).train()`` for 10 steps at
+   crops, T = 3, each worker on one OpenMP/BLAS/OpenCV thread): ms per
+   batch, beside the loader as it was before its workers were held to one
+   thread (the host's thread counts), and ``Trainer.train()``'s wall and ms
+   per step before and after. ``Trainer(cfg).train()`` for 10 steps at
    bfloat16 (checkpoints at 5 and 10), TF32 read off inside every module's
    forward and backward by hooks, K1 launched T - 1 = 2 times per step and
    K2 never; a resumed ``Trainer`` from its ``state.pth`` for 2 more steps
@@ -125,20 +128,46 @@ Needs one CUDA device and the CUDA toolkit; imports nothing of JAX or of
    "encoder" and "block" at bfloat16 (K1 2 and 3 launches per step, ms and
    peak memory).
 9. the float64 checks of both kernels again, at every shape that phases
-   4-8b handed them (recorded as they ran): the evaluator's slot buckets,
-   video batches, multi-scale and YouTube-VOS pixel counts, the session's
-   grown slots, the training shapes (B 8 and 2 at P = 576); tolerances and
+   4-8b and 10 handed them (recorded as they ran; the rank processes report
+   theirs): the evaluator's slot buckets, video batches, multi-scale and
+   YouTube-VOS pixel counts, the session's grown slots, the training shapes
+   (B 8, 4 per rank and 2 at P = 576); tolerances and
    the rerun check as in phases 2 and 3. Where the float32 plain loop
    itself leaves K1's n-round limit on a shape's draw (the training shapes'
    P = 576 at 4 rounds: chaos at tau), that shape is held at 1 round on
    the draw and at n rounds on a draw of x std 0.15, where float32 must
    be within the limit; on any other shape that is a failure.
-10. one JSON line with every kernel's numbers (``launches`` from the
+10. data parallelism, 2 ranks (Gloo, both on ``cuda:0``, on a one-card
+   machine; NCCL with one card per rank where there are two or more), each
+   rank a process with a timeout (a rank that fails or hangs fails the run)
+   printing one JSON line with its launches and the kernel shapes it saw:
+   (a) one float32 DDP step at S3 full width (global batch 8, 4 per rank,
+   each rank its loader shard and its rows of the global draws, the CPU
+   tests' tamed weights) against the one-process step on the same global
+   batch and draws on the same card: loss within 1e-3 relative, the
+   averaged gradients' global relative L2 difference within 1e-2 (phase
+   8b's card-vs-CPU gates), both ranks' parameters and gradients bit-equal;
+   (b) ``python -m swem_tpu_torch.train --distributed`` at bfloat16 on phase
+   8b's tree (4 loader workers per rank): 10 steps, then 2 resumed, K1 2
+   launches per step per rank, K2 none, rank 0 alone writing checkpoints
+   and tensorboard files, then the ``Evaluator`` on its ``variables.pth``;
+   its ms per step beside phase 8b's one process (Gloo on one card stages
+   every gradient bucket through the host: a smoke number); (c) the same
+   CLI in one process with the default backend (NCCL) for 2 steps; (d)
+   ``python -m swem_tpu_torch.eval --distributed`` over phase 8's DAVIS tree
+   sequentially and at ``video_batch=2``: disjoint slices covering the
+   videos, K1 and K2 each T_max - 1 launches per batch on each rank (warm-up
+   excluded), the PNGs' union against phase 8's one-process bf16 PNGs on
+   >= 99.9% of pixels, J&F finite and from rank 0 alone.
+11. one JSON line with every kernel's numbers (``launches`` from the
    bfloat16 run, ``launches_f32`` from the float32 one, ``launches_runner``
    from phase 6's index runner, ``launches_session`` over phase 7's 12
    pushes, ``launches_eval`` from phase 8's bfloat16 ``val``,
    ``launches_train`` and ``launches_train_f32`` from phase 8b's 10-step
-   runs), then the card line, then the final ``{"ok": true, ...}`` line.
+   runs, ``launches_ddp`` from phase 10's 10-step bfloat16 run and
+   ``launches_dist_eval`` from its sequential evaluation, each summed over
+   the ranks), then the card line, then the final ``{"ok": true, ...}``
+   line.
 """
 
 from __future__ import annotations
@@ -170,14 +199,20 @@ EVAL_LONG, LONG_REPS = (("long0", 69, 2), ("long1", 69, 2)), 3
 TRAIN_B, TRAIN_CROP, TRAIN_FRAMES, TRAIN_WORKERS = 8, 384, 3, 8
 TRAIN_VIDEOS, TRAIN_FRAMES_ON_DISK = 4, 8
 TRAIN_ITERS, TRAIN_SAVE, TRAIN_TIMED, LOADER_BATCHES = (8, 10), 5, 6, 8
-# the loader's variants (what holds it back): batches timed in each; the
-# remat steps timed per mode
+# the loader as it was before its workers ran on one thread: batches timed;
+# the remat steps timed per mode
 VARIANT_BATCHES, REMAT_STEPS = 4, 3
-# K1's shapes in training, (B, N, P, Ck, L) at B = 8 and the card-vs-CPU
-# step's B = 2: at 4 rounds the float32 plain loop itself leaves K1's limit
-# on the x std 0.3 draw (chaos at tau), so phase 9 holds them at 4 rounds
-# on a draw of CHAOTIC_X_STD (and at 1 round on the std 0.3 draw)
-TRAIN_EM_SHAPES = {(b, 2, (TRAIN_CROP // 16) ** 2, 128, 128) for b in (TRAIN_B, 2)}
+# the data-parallel phase: ranks, loader workers per rank (the host's 8 in
+# all), the DDP CLI run's (milestone, max_iter) and a bound on each launch
+DDP_WORLD = 2
+DDP_WORKERS = TRAIN_WORKERS // DDP_WORLD
+DDP_ITERS, RANK_TIMEOUT_S = TRAIN_ITERS, 300
+# K1's shapes in training, (B, N, P, Ck, L) at B = 8, a DDP rank's 4 and the
+# card-vs-CPU step's B = 2: at 4 rounds the float32 plain loop itself leaves
+# K1's limit on the x std 0.3 draw (chaos at tau), so phase 9 holds them at
+# 4 rounds on a draw of CHAOTIC_X_STD (and at 1 round on the std 0.3 draw)
+TRAIN_EM_SHAPES = {(b, 2, (TRAIN_CROP // 16) ** 2, 128, 128)
+                   for b in (TRAIN_B, TRAIN_B // DDP_WORLD, 2)}
 CHAOTIC_X_STD = 0.15
 # peak rates of an H100 (NVIDIA data sheet): FP32 outside the tensor cores, memory,
 # dense TF32 on the tensor cores
@@ -298,6 +333,20 @@ def em_tolerance(n_iters: int) -> tuple:
     return (1e-4, 1e-5) if n_iters == 1 else (5e-2, 1e-2)
 
 
+def em_bound(B, N, P, Ck, L, n_iters: int, peaks) -> tuple:
+    """K1's least time at (B, N, P, Ck, L) and ``n_iters`` rounds: (route
+    bound ms, its limit, FP32 bound ms, its limit). The E and M products
+    each round; the W step's product is the next E step's scaled by 1/|x|
+    per pixel, so the least work has no third GEMM. Bytes: x, masks,
+    kappa0, zita0 read once; z, kappa, zita written once. The kernel runs
+    its products as 3xTF32 on the tensor cores: the route's bound is three
+    TF32 products each; the FP32 CUDA-core bound beside it."""
+    flops = 2.0 * B * P * Ck * 2 * N * L * 2 * n_iters
+    nbytes = 4.0 * (B * P * Ck + B * N * 2 * P + 2 * (B * N * 2 * Ck * L + B * N * 2 * L)
+                    + B * N * 2 * P * L)
+    return bound_ms(3 * flops, nbytes, (peaks[2], peaks[1])) + bound_ms(flops, nbytes, peaks)
+
+
 def check_em(peaks) -> dict:
     """K1 against its plain version in float64; returns the kernel's JSON entry."""
     import torch
@@ -337,20 +386,11 @@ def check_em(peaks) -> dict:
             torch.matmul(xt, z_all)
 
     matmul_ms = cuda_ms(products)
-    gemm = 2.0 * P * Ck * 2 * N * L  # one (P,Ck)@(Ck,N*2*L) product
-    # E and M each round; the W step's product is the next E step's scaled by
-    # 1/|x| per pixel, so the least work has no third GEMM
-    flops = gemm * 2 * n_iters
-    nbytes = 4.0 * (x.numel() + masks.numel() + kappa0.numel() + zita0.numel()
-                    + B * N * 2 * P * L + kappa0.numel() + zita0.numel())
-    # the kernel runs its products as 3xTF32 on the tensor cores: the route's
-    # bound is three TF32 products each; the FP32 CUDA-core bound beside it
-    b_ms, b_by = bound_ms(3 * flops, nbytes, (peaks[2], peaks[1]))
-    fp32_ms, fp32_by = bound_ms(flops, nbytes, peaks)
+    b_ms, b_by, fp32_ms, fp32_by = em_bound(B, N, P, Ck, L, n_iters, peaks)
     print(f"K1 time: kernel {ms:.4f} ms (one launch, {2 * n_iters} grid barriers), plain "
           f"{plain:.4f} ms, its 8 products as torch.matmul {matmul_ms:.4f} ms; bound {b_ms:.4f} "
           f"ms ({b_by}, 3xTF32 on the tensor cores), FP32 bound {fp32_ms:.4f} ms ({fp32_by}, "
-          f"CUDA cores), bytes {nbytes / peaks[1] * 1e3:.4f} ms", flush=True)
+          f"CUDA cores)", flush=True)
     return {"name": "em_loop", "route": "cuda", "source": "swem_tpu_torch/csrc/em_loop.cu",
             "replaces": "swem_tpu/ops/em_pallas.py:56 (_em_kernel, pallas_call at :196)",
             "launches": None, "max_abs_err": max_err, "ms": ms, "plain_ms": plain,
@@ -499,7 +539,7 @@ def plain32_ratio(inputs, n_iters: int, tau: float, tol) -> float:
     return max(worst_ratio(g, r, *tol) for g, r in zip(plain32, ref))
 
 
-def check_path_shapes(log: dict) -> dict:
+def check_path_shapes(log: dict, peaks) -> dict:
     """Both kernels against their plain versions in float64 at every shape
     the paths handed them (``recording_shapes``): the evaluator's slot
     buckets, video batches, multi-scale and YouTube-VOS sizes among them.
@@ -536,6 +576,14 @@ def check_path_shapes(log: dict) -> dict:
                 fail(f"K1 {name}: the float32 plain loop itself is at {yardstick:.3f} of the "
                      f"limit: this draw cannot tell the kernel from float32")
         errs["em_loop"] = max(errs["em_loop"], em_case(name, inputs, n_iters, tau, tol, empty))
+        if (B, N, P, Ck, L) in TRAIN_EM_SHAPES:
+            from swem_tpu_torch.ops import em_kernel
+
+            ms = cuda_ms(lambda: em_kernel.em_loop(*inputs, n_iters=n_iters, tau=tau))
+            b_ms, b_by, fp32_ms, fp32_by = em_bound(B, N, P, Ck, L, n_iters, peaks)
+            print(f"K1 time at the training shape {(B, N, P, Ck, L)}, {n_iters} rounds: kernel "
+                  f"{ms:.4f} ms; bound {b_ms:.4f} ms ({b_by}, 3xTF32), FP32 bound "
+                  f"{fp32_ms:.4f} ms ({fp32_by})", flush=True)
     for B, N, P, Ck, Lm, Cv, tau in sorted(log["read_memory"]):
         for valid_case in READ_CASES:
             name = f"path shape (B, N, P, Ck, Lm, Cv) {(B, N, P, Ck, Lm, Cv)}, {valid_case}"
@@ -890,9 +938,11 @@ def read_pngs(out_dir: Path) -> np.ndarray:
     return np.stack([load_label_mask(str(p)) for p in sorted(out_dir.glob("*.png"))])
 
 
-def eval_path(model, card: str) -> dict:
+def eval_path(model, card: str) -> tuple:
     """Phase 8: the evaluator on DAVIS- and YouTube-VOS-shaped trees; returns
-    the launch counts of the bf16 DAVIS ``val``."""
+    the launch counts of the bf16 DAVIS ``val`` and what phase 10 compares
+    with: the DAVIS tree, the weights as a ``.pth``, and the output trees of
+    the sequential and ``video_batch=2`` evaluations."""
     import dataclasses
     import shutil
 
@@ -1069,7 +1119,9 @@ def eval_path(model, card: str) -> dict:
           f"{busy * 1e3:.3f} ms, idle share {1 - busy / wall:.4f}", flush=True)
     print(f"evaluator phase: peak device memory {torch.cuda.max_memory_allocated() / 2 ** 20:.1f}"
           f" MB, wall {time.perf_counter() - t_phase:.1f} s", flush=True)
-    return launches
+    torch.save(state, work / "weights.pth")
+    return launches, {"davis": davis, "pth": work / "weights.pth",
+                      "seq": Path(seq.out_root), "vb": Path(vb.out_root)}
 
 
 def check_no_grad_launch() -> None:
@@ -1186,24 +1238,39 @@ def tf32_watch(model, label: str):
           f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32})", flush=True)
 
 
+def recording_steps(trainer) -> tuple:
+    """Wrap ``trainer.train_step`` to keep each step's losses and the host
+    clock at each call; returns (losses, call times)."""
+    losses, times, step = [], [], trainer.train_step
+
+    def recording_step(*a, **kw):
+        times.append(time.perf_counter())
+        out = step(*a, **kw)
+        losses.append(out)
+        return out
+
+    trainer.train_step = recording_step
+    return losses, times
+
+
+def step_ms(times) -> float:
+    """The training loop's ms per step: the median gap between successive
+    step calls (the loader's waits and the log periods' syncs included)."""
+    return float(np.median(np.diff(times))) * 1e3
+
+
 def run_trainer(cfg, label: str, watch: bool = False) -> tuple:
     """``Trainer(cfg).train()`` with every launch count set to 0 just before
     and read just after: K1 (T - 1) times per step, K2 never. Returns (the
-    trainer, its losses per step, the launch counts, wall seconds)."""
+    trainer, its losses per step, the launch counts, wall seconds, ms per
+    step)."""
     from swem_tpu_torch.train.loop import Trainer
     from swem_tpu_torch.utils import setup_logger
 
     logger = setup_logger(f"chip_smoke_{label}", cfg.log_dir, label.replace(" ", "_"))
     trainer = Trainer(cfg, logger=logger)
     start, n_steps = trainer.state.step, trainer.max_iter - trainer.state.step
-    losses, step = [], trainer.train_step
-
-    def recording_step(*a, **kw):
-        out = step(*a, **kw)
-        losses.append(out)
-        return out
-
-    trainer.train_step = recording_step
+    losses, times = recording_steps(trainer)
     t0 = time.perf_counter()
     with tf32_watch(trainer.model, label) if watch else contextlib.nullcontext():
         _, launches = counted(trainer.train, {"em_loop": (TRAIN_FRAMES - 1) * n_steps,
@@ -1212,7 +1279,7 @@ def run_trainer(cfg, label: str, watch: bool = False) -> tuple:
     values = [float(m["total_loss"]) for m in losses]
     if trainer.state.step != start + n_steps or not np.isfinite(values).all():
         fail(f"{label}: step {trainer.state.step} (expected {start + n_steps}), losses {values}")
-    return trainer, values, launches, wall
+    return trainer, values, launches, wall, step_ms(times)
 
 
 def loader_batch(cfg) -> dict:
@@ -1237,6 +1304,20 @@ def grad_difference(a: tuple, b: tuple) -> tuple:
     return abs(la - lb) / abs(lb), glob, rel
 
 
+def tamed_weights(cfg) -> dict:
+    """``cfg.model``'s seeded weights (``init_weights(0)``) tamed as the CPU
+    tests tame them: keys of norm ~3, decoder logits O(1), so that float32
+    rounding is not grown into chaos by the EM softmax at tau."""
+    import torch
+    from swem_tpu_torch.models.swem import SWEM
+
+    tamed = SWEM(cfg.model, device="cpu").init_weights(0)
+    with torch.no_grad():
+        tamed.key_proj.key_proj.weight.mul_(0.03)
+        tamed.decoder.pred.weight.mul_(0.01)
+    return tamed.state_dict()
+
+
 def card_vs_cpu_step(root: Path) -> dict:
     """One float32 train step at full width, B = 2, on the card and on the
     CPU (plain versions) from the same tamed weights, batch and bases:
@@ -1252,11 +1333,7 @@ def card_vs_cpu_step(root: Path) -> dict:
 
     cfg = s3_config(root, root, "float32", data={"batch_size": 2, "num_workers": 0})
     batch = loader_batch(cfg)
-    tamed = SWEM(cfg.model, device="cpu").init_weights(0)
-    with torch.no_grad():  # the CPU tests' taming: keys of norm ~3, decoder logits O(1)
-        tamed.key_proj.key_proj.weight.mul_(0.03)
-        tamed.decoder.pred.weight.mul_(0.01)
-    weights = tamed.state_dict()
+    weights = tamed_weights(cfg)
     m = cfg.model
     bases = em.init_bases(torch.Generator().manual_seed(5), 2, m.max_objs, m.keydim, m.valdim,
                           m.num_bases)
@@ -1372,51 +1449,46 @@ def remat_steps(root: Path, card: str) -> dict:
     return out
 
 
-def _cv2_one_thread(factory):
-    """A loader worker's dataset, built after OpenCV is held to one thread."""
+def _cv2_threads(n: int, factory):
+    """A loader worker's dataset, built after OpenCV is set to ``n`` threads."""
     import cv2
 
-    cv2.setNumThreads(1)
+    cv2.setNumThreads(n)
     return factory()
 
 
-def time_loader(cfg, n_batches: int, one_cv2_thread: bool = False,
-                one_blas_thread: bool = False) -> tuple:
-    """``cfg``'s loader: the first batch's ms (the pool's start) and ms per
-    batch over the next ``n_batches``; returns (first ms, ms per batch, the
-    first batch, the last). ``one_cv2_thread``: each worker holds OpenCV to
-    one thread; ``one_blas_thread``: the workers start with the OpenMP and
-    BLAS thread counts at 1 (the environment, restored after the pool's
-    start)."""
+@contextlib.contextmanager
+def loader_as_before():
+    """The loader as it was before its workers ran on one thread: they start
+    with the host's OpenMP/BLAS thread counts (no ``WORKER_THREAD_ENV``)
+    and OpenCV at its default, the count this process has."""
     import functools
-    import os
 
     import cv2
-    from swem_tpu_torch.data.factory import build_dataset_factory
-    from swem_tpu_torch.data.loader import TrainLoader
+    from swem_tpu_torch.data import factory, loader
 
-    factory = build_dataset_factory(cfg)
-    if one_cv2_thread:
-        factory = functools.partial(_cv2_one_thread, factory)
-    main_threads = cv2.getNumThreads()  # the loader builds one probe dataset here
-    loader = TrainLoader(factory, cfg.data.batch_size, seed=cfg.data.seed,
-                         num_workers=cfg.data.num_workers)
-    cv2.setNumThreads(main_threads)
-    names = ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS")
-    saved = {k: os.environ.get(k) for k in names}
-    if one_blas_thread:
-        os.environ.update({k: "1" for k in names})
-    batches = iter(loader)
+    env, build = loader.WORKER_THREAD_ENV, factory.build_dataset_factory
+    threads = cv2.getNumThreads()
+    loader.WORKER_THREAD_ENV = {}
+    factory.build_dataset_factory = lambda cfg: functools.partial(_cv2_threads, threads,
+                                                                  build(cfg))
     try:
-        t0 = time.perf_counter()
-        first = next(batches)  # starts the pool
-        t1 = time.perf_counter()
+        yield
     finally:
-        for k, v in saved.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
+        loader.WORKER_THREAD_ENV, factory.build_dataset_factory = env, build
+
+
+def time_loader(cfg, n_batches: int) -> tuple:
+    """``cfg``'s loader: the first batch's ms (the pool's start) and ms per
+    batch over the next ``n_batches``; returns (first ms, ms per batch, the
+    first batch, the last)."""
+    from swem_tpu_torch.data.factory import build_train_loader
+
+    loader = build_train_loader(cfg)
+    batches = iter(loader)
+    t0 = time.perf_counter()
+    first = next(batches)  # starts the pool
+    t1 = time.perf_counter()
     for _ in range(n_batches):
         last = next(batches)
     ms = (time.perf_counter() - t1) / n_batches * 1e3
@@ -1425,18 +1497,42 @@ def time_loader(cfg, n_batches: int, one_cv2_thread: bool = False,
     return (t1 - t0) * 1e3, ms, first, last
 
 
-def train_path(card: str) -> dict:
-    """Phase 8b: training at S3 full width; returns the launch counts of the
-    bfloat16 run."""
-    import os
-    import shutil
-
-    import cv2
+def eval_trained(ckpt: Path, root: Path, log_dir: Path, val_video: str) -> None:
+    """The ``Evaluator`` on a trained ``variables.pth`` (read directly, as a
+    reference ``.pth``) over the training tree's one DAVIS val video: T - 1
+    launches of each kernel, a PNG per frame, indices within its 2 boxes."""
     import torch
     from swem_tpu_torch import registry
     from swem_tpu_torch.config import EvalConfig
     from swem_tpu_torch.eval.evaluator import Evaluator
     from swem_tpu_torch.utils import setup_logger
+
+    ev_cfg = s3_config(root, log_dir, "bfloat16").replace(
+        eval=EvalConfig(data_root=str(root / "DAVIS"), max_objs=8, davis_in_size=EVAL_IN))
+    ev = Evaluator(ev_cfg, registry.load_state_dict(ev_cfg, str(ckpt / "variables.pth")),
+                   logger=setup_logger(f"chip_smoke_eval_{log_dir.name}", str(log_dir),
+                                       screen=False))
+    ev.evaluate()  # builds and warms its runners
+    counted(ev.evaluate, TRAIN_FRAMES_ON_DISK - 1, f"evaluator on {ckpt}/variables.pth")
+    pngs = read_pngs(Path(ev.out_root) / val_video)
+    if pngs.shape != (TRAIN_FRAMES_ON_DISK,) + EVAL_HW or int(pngs.max()) > 2:
+        fail(f"evaluator on variables.pth: PNGs {pngs.shape} with indices up to {int(pngs.max())}")
+    print(f"evaluator on the trained {ckpt.parent.name}/variables.pth: {val_video}, "
+          f"{pngs.shape[0]} PNGs at {EVAL_HW}, {ev.fps:.2f} frames/s, label pixels "
+          f"{np.bincount(pngs.ravel(), minlength=3).tolist()}", flush=True)
+    del ev
+    torch.cuda.empty_cache()
+
+
+def train_path(card: str) -> dict:
+    """Phase 8b: training at S3 full width; returns the launch counts of the
+    bfloat16 and float32 runs and what phase 10 reuses (the tree, the
+    one-process run's wall and ms per step)."""
+    import os
+    import shutil
+
+    import cv2
+    import torch
 
     t_phase = time.perf_counter()
     work = ROOT / "build" / "chip_smoke_train"
@@ -1454,45 +1550,42 @@ def train_path(card: str) -> dict:
             or b["frames"].dtype != np.uint8 or int(b["label"].max()) > 2:
         fail(f"loader: frames {b['frames'].shape} {b['frames'].dtype}, labels up to "
              f"{int(b['label'].max())}")
-    print(f"loader ({TRAIN_WORKERS} workers, batch {TRAIN_B} at {TRAIN_CROP}x{TRAIN_CROP}, "
-          f"T={TRAIN_FRAMES}): first batch {first_ms:.1f} ms (pool start), then "
-          f"{loader_ms:.1f} ms per batch over {LOADER_BATCHES}; valid slots per clip "
-          f"{first['valid_obj'].sum(1).tolist()}", flush=True)
+    print(f"loader ({TRAIN_WORKERS} workers on one OpenMP/BLAS/OpenCV thread each, batch "
+          f"{TRAIN_B} at {TRAIN_CROP}x{TRAIN_CROP}, T={TRAIN_FRAMES}): first batch "
+          f"{first_ms:.1f} ms (pool start), then {loader_ms:.1f} ms per batch over "
+          f"{LOADER_BATCHES}; valid slots per clip {first['valid_obj'].sum(1).tolist()}",
+          flush=True)
+    with loader_as_before():
+        before_first, before_ms, _, _ = time_loader(s3, VARIANT_BATCHES)
+    print(f"loader as before (the workers on the host's OpenMP/BLAS/OpenCV thread counts): "
+          f"first batch {before_first:.1f} ms, then {before_ms:.1f} ms per batch over "
+          f"{VARIANT_BATCHES}; now {loader_ms:.1f}", flush=True)
     counts = {}
-    bf16, losses, counts["bfloat16"], wall = run_trainer(
+    bf16, losses, counts["bfloat16"], wall, ms = run_trainer(
         s3_config(root, work, "bfloat16"), "train bfloat16", watch=True)
     ckpt = Path(bf16.ckpt_dir)
     print(f"train (bfloat16): Trainer.train() {TRAIN_ITERS[1]} steps in {wall:.1f} s (loader "
-          f"pool start included) on {card}; losses {' '.join(f'{v:.4f}' for v in losses)}; "
-          f"launches {counts['bfloat16']}; checkpoints {sorted(p.name for p in ckpt.iterdir())}",
+          f"pool start included), {ms:.1f} ms per step (median gap between step calls) on "
+          f"{card}; losses {' '.join(f'{v:.4f}' for v in losses)}; launches "
+          f"{counts['bfloat16']}; checkpoints {sorted(p.name for p in ckpt.iterdir())}",
+          flush=True)
+    with loader_as_before():
+        _, _, _, wall_before, ms_before = run_trainer(
+            s3_config(root, work / "before", "bfloat16"), "train bfloat16 loader as before")
+    print(f"train (bfloat16) with the loader as before: Trainer.train() {TRAIN_ITERS[1]} steps "
+          f"in {wall_before:.1f} s, {ms_before:.1f} ms per step; now {wall:.1f} s, {ms:.1f} ms",
           flush=True)
     # resume: the whole state from state.pth, two more steps
-    resumed, more, launches_resume, _ = run_trainer(
+    resumed, more, launches_resume, _, _ = run_trainer(
         s3_config(root, work, "bfloat16", total=(TRAIN_ITERS[0], TRAIN_ITERS[1] + 2),
                   resume=str(ckpt), from_scratch=False), "train bfloat16 resumed")
     print(f"train (bfloat16) resumed from {ckpt.name}/state.pth at step {TRAIN_ITERS[1]}: "
           f"step now {resumed.state.step}, losses {' '.join(f'{v:.4f}' for v in more)}; "
           f"launches {launches_resume}", flush=True)
     del bf16, resumed
-    # the evaluator reads variables.pth directly
-    ev_cfg = s3_config(root, work, "bfloat16").replace(
-        eval=EvalConfig(data_root=str(root / "DAVIS"), max_objs=8, davis_in_size=EVAL_IN),
-        log_dir=str(work / "eval"))
-    ev = Evaluator(ev_cfg, registry.load_state_dict(ev_cfg, str(ckpt / "variables.pth")),
-                   logger=setup_logger("chip_smoke_train_eval", str(work / "eval"),
-                                       screen=False))
-    ev.evaluate()  # builds and warms its runners
-    counted(ev.evaluate, TRAIN_FRAMES_ON_DISK - 1, "evaluator on the trained variables.pth")
-    pngs = read_pngs(Path(ev.out_root) / val_video)
-    if pngs.shape != (TRAIN_FRAMES_ON_DISK,) + EVAL_HW or int(pngs.max()) > 2:
-        fail(f"evaluator on variables.pth: PNGs {pngs.shape} with indices up to {int(pngs.max())}")
-    print(f"evaluator on the trained variables.pth: {val_video}, {pngs.shape[0]} PNGs at "
-          f"{EVAL_HW}, {ev.fps:.2f} frames/s, label pixels {np.bincount(pngs.ravel(), minlength=3).tolist()}",
-          flush=True)
-    del ev
-    torch.cuda.empty_cache()
+    eval_trained(ckpt, root, work / "eval", val_video)
 
-    f32, losses32, counts["float32"], wall32 = run_trainer(
+    f32, losses32, counts["float32"], wall32, _ = run_trainer(
         s3_config(root, work, "float32"), "train float32", watch=True)
     print(f"train (float32): Trainer.train() {TRAIN_ITERS[1]} steps in {wall32:.1f} s on {card}; "
           f"losses {' '.join(f'{v:.4f}' for v in losses32)}; launches {counts['float32']}",
@@ -1503,19 +1596,6 @@ def train_path(card: str) -> dict:
     parity = card_vs_cpu_step(root)
     timing = {dt: time_train(root, dt, card) for dt in ("bfloat16", "float32")}
     remat = remat_steps(root, card)
-    # what holds the loader back: its variants, last, once the runs are done
-    variants = {}
-    for label, workers, kw in (("1 worker", 1, {}),
-                               (f"{TRAIN_WORKERS} workers, OpenCV 1 thread each", TRAIN_WORKERS,
-                                {"one_cv2_thread": True}),
-                               (f"{TRAIN_WORKERS} workers, OpenMP/BLAS 1 thread each",
-                                TRAIN_WORKERS, {"one_blas_thread": True}),
-                               (f"{TRAIN_WORKERS} workers, OpenCV and OpenMP/BLAS 1 thread each",
-                                TRAIN_WORKERS, {"one_cv2_thread": True, "one_blas_thread": True})):
-        cfg_v = s3.replace(data=dataclasses.replace(s3.data, num_workers=workers))
-        v_first, variants[label], _, _ = time_loader(cfg_v, VARIANT_BATCHES, **kw)
-        print(f"loader variant ({label}): first batch {v_first:.1f} ms, then "
-              f"{variants[label]:.1f} ms per batch over {VARIANT_BATCHES}", flush=True)
     print(f"loader host: {os.cpu_count()} CPUs, OpenCV {cv2.__version__} with "
           f"{cv2.getNumThreads()} threads in this process", flush=True)
     print(f"training phase: wall {time.perf_counter() - t_phase:.1f} s; S3 step median bf16 "
@@ -1523,7 +1603,391 @@ def train_path(card: str) -> dict:
           f" ms; loader {loader_ms:.1f} ms per batch", flush=True)
     return {"launches": counts["bfloat16"], "launches_f32": counts["float32"],
             "parity": parity, "timing": timing, "remat": remat, "loader_ms": loader_ms,
-            "loader_variants_ms": variants}
+            "root": root, "val_video": val_video, "train_wall_s": wall, "step_ms": ms}
+
+
+# ---------------------------------------------------------------------------
+# phase 10: data parallelism. The parent starts the ranks with
+# ``python -m torch.distributed.run``; each rank runs this script as
+# ``chip_smoke.py --rank <job> <out_dir> <args...>`` (``rank_main``).
+
+def launch_ranks(nproc: int, job: str, out_dir: Path, args, label: str) -> list:
+    """``nproc`` ranks of ``job`` through ``torch.distributed.run`` in a
+    session of their own, bounded by RANK_TIMEOUT_S (then the whole session
+    is killed and the run fails); a rank that fails fails the run. Relays
+    each rank's JSON line and returns them in rank order."""
+    import os
+    import signal
+    import subprocess
+
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for old in out_dir.glob(f"{job}_rank*.json"):
+        old.unlink()
+    log = out_dir / f"{job}.log"
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+           str(nproc), str(ROOT / "chip_smoke.py"), "--rank", job, str(out_dir), *map(str, args)]
+    t0 = time.perf_counter()
+    with open(log, "w") as f:
+        proc = subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT, cwd=ROOT,
+                                start_new_session=True)
+        try:
+            rc = proc.wait(timeout=RANK_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            rc = None
+            os.killpg(proc.pid, signal.SIGTERM)
+            try:
+                proc.wait(timeout=15)
+            except subprocess.TimeoutExpired:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+    tail = log.read_text()[-6000:]
+    if rc != 0:
+        print(tail, file=sys.stderr, flush=True)
+        fail(f"{label}: {nproc} ranks " + (f"still running after {RANK_TIMEOUT_S} s: killed"
+                                           if rc is None else f"exited with {rc}"))
+    results = [json.loads((out_dir / f"{job}_rank{r}.json").read_text()) for r in range(nproc)]
+    for r in results:
+        print(f"{label}, rank {r['rank']} of {r['world']} ({r['backend']}, {r['device']}): "
+              f"{json.dumps(r)}", flush=True)
+    print(f"{label}: {nproc} ranks in {time.perf_counter() - t0:.1f} s (process starts included)",
+          flush=True)
+    return results
+
+
+def rank_main(argv) -> int:
+    """One rank of phase 10 (``--rank <job> <out_dir> <args...>``): runs the
+    job with the kernel shapes recorded, prints one JSON line with its
+    launches and shapes and writes it to ``<out_dir>/<job>_rank<r>.json``."""
+    import os
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke rank: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT))
+    job, out_dir, args = argv[0], Path(argv[1]), argv[2:]
+    shapes = {"em_loop": set(), "read_memory": set()}
+    with recording_shapes(shapes):
+        result = {"step": rank_step, "train": rank_train, "eval": rank_eval}[job](args)
+    result.update(job=job, rank=int(os.environ["RANK"]), world=int(os.environ["WORLD_SIZE"]),
+                  shapes={k: sorted(v) for k, v in shapes.items()})
+    line = json.dumps(result)
+    print(line, flush=True)
+    (out_dir / f"{job}_rank{result['rank']}.json").write_text(line)
+    return 0
+
+
+def launch_counts() -> dict:
+    from swem_tpu_torch.ops import em_kernel, read_kernel
+
+    return {"em_loop": em_kernel.launches, "read_memory": read_kernel.launches}
+
+
+def digest(tensors: dict) -> str:
+    """sha256 of the tensors' bytes in name order: equal digests, equal bits."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for name in sorted(tensors):
+        h.update(tensors[name].detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def rank_step(args) -> dict:
+    """Phase 10a, one rank: one float32 DDP step at S3 full width on this
+    rank's loader shard and its rows of the global draws, from the tamed
+    weights; rank 0 saves the averaged gradients and the global loss."""
+    import torch
+    import torch.distributed as dist
+    from swem_tpu_torch import parallel
+    from swem_tpu_torch.data.factory import build_train_loader
+    from swem_tpu_torch.models.swem import SWEM
+    from swem_tpu_torch.ops import em_kernel, read_kernel
+    from swem_tpu_torch.train import trainer
+    from swem_tpu_torch.train.loop import RNG_OFFSET
+
+    backend, device, root, out = args
+    with parallel.process_group(backend=backend,
+                                device=None if device == "rank" else device) as dev:
+        rank, world = parallel.process_index(), parallel.process_count()
+        cfg = s3_config(Path(root), Path(out), "float32", data={"num_workers": 0})
+        model = SWEM(cfg.model, device=dev)
+        model.load_state_dict(tamed_weights(cfg))
+        loader = build_train_loader(cfg, shard_id=rank, num_shards=world)
+        batch = next(iter(loader))
+        loader.close()
+        batch.pop("skips")
+        state = trainer.create_train_state(model, cfg.solver)
+        step = trainer.make_train_step(cfg)
+        staged = trainer.batch_to_device(batch, dev)
+        em_kernel.launches = read_kernel.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = step(state, staged, trainer.step_generator(cfg.data.seed + RNG_OFFSET, 0))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = launch_counts()
+        glob = float(parallel.global_mean(losses["total_loss"]))
+        grads = {n: p.grad.detach().double().cpu() for n, p in model.named_parameters()}
+        if rank == 0:
+            torch.save({"loss": glob, "grads": grads}, Path(out) / "ddp_step.pt")
+        result = {"backend": dist.get_backend(), "device": str(dev),
+                  "ddp": isinstance(state.forward, torch.nn.parallel.DistributedDataParallel),
+                  "rows": int(batch["frames"].shape[0]), "loss": float(losses["total_loss"]),
+                  "global_loss": glob, "ms": ms, "launches": launches,
+                  "params_sha": digest(dict(model.named_parameters())),
+                  "grads_sha": digest(grads),
+                  "peak_mb": torch.cuda.max_memory_allocated(dev) / 2 ** 20}
+        dist.barrier()  # rank 0's file is written before any rank leaves
+        return result
+
+
+def rank_train(argv) -> dict:
+    """Phase 10b/c, one rank: ``python -m swem_tpu_torch.train`` with
+    ``argv``, its kernel launches counted over the whole call, each step's
+    losses and host clock, and what the rank's ``Trainer`` held: the
+    backend, the tensorboard writer, the checkpoints it handed its writer
+    thread."""
+    import importlib.util
+
+    import torch
+    import torch.distributed as dist
+    from swem_tpu_torch.ops import em_kernel, read_kernel
+    from swem_tpu_torch.train import __main__ as cli
+    from swem_tpu_torch.train import loop
+
+    seen, train = {}, loop.Trainer.train
+
+    def recorded_train(self):
+        losses, times = recording_steps(self)
+        submits, submit = [0], self._saver.submit
+
+        def counting_submit(*a, **kw):
+            submits[0] += 1
+            return submit(*a, **kw)
+
+        self._saver.submit = counting_submit
+        seen.update(backend=dist.get_backend(), device=str(self.device),
+                    writer=self.writer is not None,
+                    tensorboardx=importlib.util.find_spec("tensorboardX") is not None)
+        t0 = time.perf_counter()
+        try:
+            return train(self)
+        finally:
+            seen.update(train_s=time.perf_counter() - t0, step_ms=step_ms(times),
+                        losses=[float(m["total_loss"]) for m in losses],
+                        checkpoints=submits[0],
+                        peak_mb=torch.cuda.max_memory_allocated(self.device) / 2 ** 20)
+
+    loop.Trainer.train = recorded_train
+    em_kernel.launches = read_kernel.launches = 0
+    state = cli.main(argv)
+    return {**seen, "step": state.step, "launches": launch_counts()}
+
+
+def rank_eval(argv) -> dict:
+    """Phase 10d, one rank: ``python -m swem_tpu_torch.eval`` with ``argv``:
+    its metrics, the batches of videos it ran (name, T), and its kernel
+    launches over the call less those of the runners' warm-up."""
+    import torch.distributed as dist
+    from swem_tpu_torch.engine import ChunkedVideoRunner
+    from swem_tpu_torch.eval import __main__ as cli
+    from swem_tpu_torch.eval.evaluator import Evaluator
+    from swem_tpu_torch.ops import em_kernel, read_kernel
+
+    seen, batches = {}, []
+    warm = {"em_loop": 0, "read_memory": 0}
+    warmup, infer, val = ChunkedVideoRunner.warmup, Evaluator._infer, Evaluator.val
+
+    def counted_warmup(self, *a, **kw):
+        before = launch_counts()
+        warmup(self, *a, **kw)
+        for k, v in launch_counts().items():
+            warm[k] += v - before[k]
+
+    def recorded_infer(self, videos, *a, **kw):
+        batches.append([(v.name, int(v.frames.shape[0])) for v in videos])
+        return infer(self, videos, *a, **kw)
+
+    def recorded_val(self):
+        seen.update(backend=dist.get_backend(), device=str(self.model.device))
+        return val(self)
+
+    ChunkedVideoRunner.warmup, Evaluator._infer = counted_warmup, recorded_infer
+    Evaluator.val = recorded_val
+    em_kernel.launches = read_kernel.launches = 0
+    metrics = cli.main(argv)
+    launches = {k: v - warm[k] for k, v in launch_counts().items()}
+    return {**seen, "metrics": metrics, "batches": batches, "launches": launches,
+            "warmup_launches": warm}
+
+
+def ddp_path(card: str, train: dict, eval_refs: dict) -> dict:
+    """Phase 10: data parallelism on the card; returns the launches of the
+    bf16 CLI run and of the sequential distributed evaluation (each summed
+    over the ranks) and the shapes the ranks handed the kernels."""
+    import shutil
+
+    import torch
+    from swem_tpu_torch.models.swem import SWEM
+    from swem_tpu_torch.train import trainer
+    from swem_tpu_torch.train.loop import RNG_OFFSET
+
+    t_phase = time.perf_counter()
+    root, work = train["root"], ROOT / "build" / "chip_smoke_ddp"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    shapes = {"em_loop": set(), "read_memory": set()}
+
+    def keep_shapes(results):
+        for r in results:
+            for k, v in r["shapes"].items():
+                shapes[k] |= {tuple(x) for x in v}
+
+    # one card: Gloo, both ranks on cuda:0 (NCCL refuses two ranks on one
+    # card); two or more: NCCL, a card per rank
+    one_card = torch.cuda.device_count() < DDP_WORLD
+    backend, device = ("gloo", "cuda:0") if one_card else ("nccl", "rank")
+    print(f"data parallel: {DDP_WORLD} ranks, {backend} on "
+          f"{'cuda:0 twice' if one_card else 'a card each'} ({torch.cuda.device_count()} "
+          f"visible)", flush=True)
+
+    # (a) one float32 DDP step against one process on the global batch
+    ranks = launch_ranks(DDP_WORLD, "step", work, [backend, device, root, work],
+                         "DDP step (float32)")
+    keep_shapes(ranks)
+    for r in ranks:
+        if not r["ddp"] or r["rows"] != TRAIN_B // DDP_WORLD or r["launches"] != {
+                "em_loop": TRAIN_FRAMES - 1, "read_memory": 0}:
+            fail(f"DDP step rank {r['rank']}: {r}")
+    if len({(r["params_sha"], r["grads_sha"], r["global_loss"]) for r in ranks}) != 1:
+        fail("DDP step: the ranks' parameters, gradients or global losses differ")
+    cfg = s3_config(root, work, "float32", data={"num_workers": 0})
+    model = SWEM(cfg.model)
+    model.load_state_dict(tamed_weights(cfg))
+    state = trainer.create_train_state(model, cfg.solver)
+    (losses, _) = counted(lambda: trainer.make_train_step(cfg)(
+        state, trainer.batch_to_device(loader_batch(cfg), model.device),
+        trainer.step_generator(cfg.data.seed + RNG_OFFSET, 0)),
+        {"em_loop": TRAIN_FRAMES - 1, "read_memory": 0}, "one-process step")
+    one = (float(losses["total_loss"]),
+           {n: p.grad.detach().double().cpu() for n, p in model.named_parameters()})
+    ddp = torch.load(work / "ddp_step.pt", weights_only=True)
+    del model, state
+    torch.cuda.empty_cache()
+    loss_rel, glob, rel = grad_difference((ddp["loss"], ddp["grads"]), one)
+    print(f"DDP step (float32, S3 full width, global batch {TRAIN_B} as {DDP_WORLD} x "
+          f"{TRAIN_B // DDP_WORLD}, tamed weights, global draws) against one process on the same "
+          f"card: loss {ddp['loss']:.8f} vs {one[0]:.8f}, relative difference {loss_rel:.3e} "
+          f"(gate 1e-3); averaged gradients' global relative L2 difference {glob:.3e} (gate "
+          f"1e-2), per parameter median {float(np.median(list(rel.values()))):.3e}; the ranks' "
+          f"parameters and gradients bit-equal; rank step {ranks[0]['ms']:.1f} ms", flush=True)
+    if not loss_rel <= 1e-3 or not glob <= 1e-2:
+        fail(f"DDP step: loss {loss_rel:.3e} (gate 1e-3), gradients {glob:.3e} (gate 1e-2)")
+
+    # (b) the training CLI at bfloat16, 10 steps, then 2 resumed
+    exp = work / "SWEM" / "S3" / "ddp"
+    argv = ["--distributed", "--stage", "3", "--data_root", root, "--dtype", "bfloat16",
+            "--batch_size", TRAIN_B, "--num_workers", DDP_WORKERS, "--crop_size", TRAIN_CROP,
+            "--log_dir", work, "--exp", "ddp", "--log_period", 5, "--save_period", TRAIN_SAVE,
+            "--vis_period", 5]
+    if one_card:
+        argv += ["--dist_backend", "gloo", "--device", "cuda:0"]
+    runs = {}
+    for label, extra, steps in (("DDP train (bfloat16)", ["--total_iters", *DDP_ITERS],
+                                 DDP_ITERS[1]),
+                                ("DDP train resumed", ["--total_iters", DDP_ITERS[0],
+                                                       DDP_ITERS[1] + 2, "--resume",
+                                                       exp / "checkpoints"], 2)):
+        ranks = launch_ranks(DDP_WORLD, "train", work, argv + extra, label)
+        keep_shapes(ranks)
+        for r in ranks:
+            want = {"em_loop": (TRAIN_FRAMES - 1) * steps, "read_memory": 0}
+            if r["launches"] != want or not np.isfinite(r["losses"]).all() \
+                    or len(r["losses"]) != steps or r["backend"] != backend:
+                fail(f"{label} rank {r['rank']}: {r} (expected launches {want})")
+            # tensorboard scalars where tensorboardX imports
+            if r["writer"] != (r["rank"] == 0 and r["tensorboardx"]) or (
+                    r["rank"] != 0 and r["checkpoints"]):
+                fail(f"{label}: rank {r['rank']} writer {r['writer']} (tensorboardX "
+                     f"{r['tensorboardx']}), checkpoints {r['checkpoints']}: rank 0 alone writes")
+        if ranks[0]["checkpoints"] < 1 or ranks[0]["step"] != DDP_ITERS[1] + (
+                2 if "resumed" in label else 0):
+            fail(f"{label}: rank 0 wrote {ranks[0]['checkpoints']} checkpoints, step "
+                 f"{ranks[0]['step']}")
+        runs[label] = ranks
+    files = sorted(p.name for p in (exp / "checkpoints").iterdir())
+    events = list((exp / "tb").glob("*tfevents*")) if (exp / "tb").exists() else []
+    writers = sum(r["writer"] for run in runs.values() for r in run)  # rank 0's, one per run
+    if files != ["state.pth", "variables.pth"] or len(events) != writers:
+        fail(f"DDP train: checkpoints {files}, tensorboard files {events}, {writers} writers")
+    first = runs["DDP train (bfloat16)"]
+    launches_ddp = {k: sum(r["launches"][k] for r in first) for k in ("em_loop", "read_memory")}
+    print(f"DDP train (bfloat16, {DDP_WORLD} ranks x {DDP_WORKERS} loader workers): "
+          f"{DDP_ITERS[1]} steps, Trainer.train() {first[0]['train_s']:.1f} s, "
+          f"{first[0]['step_ms']:.1f} ms per step (rank 0; median gap between step calls) "
+          f"against one process's {train['train_wall_s']:.1f} s, {train['step_ms']:.1f} ms "
+          f"(phase 8b) on {card}; peak device memory per rank "
+          f"{[round(r['peak_mb'], 1) for r in first]} MB; a smoke number: Gloo on one card stages every gradient "
+          f"bucket through the host; rank 0's own losses {first[0]['losses']}; launches "
+          f"{launches_ddp} over both ranks; checkpoints {files} and {len(events)} tensorboard "
+          f"files, rank 0's alone", flush=True)
+    eval_trained(exp / "checkpoints", root, work / "eval", train["val_video"])
+
+    # (c) the production init in one process: the default backend, NCCL
+    (nccl,) = launch_ranks(1, "train", work, [
+        "--distributed", "--stage", "3", "--data_root", root, "--dtype", "bfloat16",
+        "--batch_size", TRAIN_B, "--num_workers", DDP_WORKERS, "--crop_size", TRAIN_CROP,
+        "--log_dir", work / "nccl", "--exp", "nccl", "--vis_period", 0, "--total_iters", 1, 2],
+        "DDP train, 1 rank")
+    keep_shapes([nccl])
+    if nccl["backend"] != "nccl" or nccl["step"] != 2 or nccl["launches"] != {
+            "em_loop": 2 * (TRAIN_FRAMES - 1), "read_memory": 0}:
+        fail(f"DDP train, 1 rank (NCCL): {nccl}")
+
+    # (d) distributed evaluation over phase 8's DAVIS tree
+    n_videos = len(EVAL_VIDEOS)
+    launches_eval = None
+    for tag, extra in (("seq", []), ("vb", ["--video_batch", 2])):
+        label = f"distributed evaluation ({'video_batch=2' if extra else 'sequential'})"
+        ranks = launch_ranks(DDP_WORLD, "eval", work, [
+            "--distributed", "--eval_set", "DAVIS17", "--data_root", eval_refs["davis"],
+            "--resume", eval_refs["pth"], "--log_dir", work / f"eval_{tag}", "--dtype",
+            "bfloat16", "--max_objs", 8, "--davis_in_size", *EVAL_IN,
+            *(["--device", "cuda:0"] if one_card else []), *extra], label)
+        keep_shapes(ranks)
+        names = [[v for batch in r["batches"] for v, _ in batch] for r in ranks]
+        if sorted(sum(names, [])) != sorted(v[0] for v in EVAL_VIDEOS) or any(
+                set(a) & set(b) for a in names for b in names if a is not b):
+            fail(f"{label}: slices {names} are not disjoint or do not cover the videos")
+        for r in ranks:
+            want = sum(max(t for _, t in batch) - 1 for batch in r["batches"])
+            if r["launches"] != {"em_loop": want, "read_memory": want}:
+                fail(f"{label} rank {r['rank']}: launches {r['launches']}, expected {want} each")
+        if ranks[1]["metrics"] is not None or not ranks[0]["metrics"] or not all(
+                np.isfinite(v) for v in ranks[0]["metrics"].values()):
+            fail(f"{label}: metrics {[r['metrics'] for r in ranks]}: finite J&F from rank 0 "
+                 f"alone expected")
+        out = work / f"eval_{tag}" / "SWEM" / "S3" / "swem" / "results" / "DAVIS17" / "output"
+        eq = total = 0
+        for name, T, _ in EVAL_VIDEOS:
+            a, b = read_pngs(out / name), read_pngs(eval_refs[tag] / name)
+            if a.shape != b.shape:
+                fail(f"{label}: {name} PNGs {a.shape}, one process {b.shape}")
+            eq, total = eq + int((a == b).sum()), total + a.size
+        print(f"{label}: {n_videos} videos over {DDP_WORLD} ranks as {names}; PNGs equal to "
+              f"phase 8's one process on {eq / total:.6f} of pixels (gate 0.999); J&F "
+              f"{ranks[0]['metrics']['J&F-Mean']:.3f} from rank 0 alone; launches per rank "
+              f"{[r['launches'] for r in ranks]}", flush=True)
+        if eq / total < 0.999:
+            fail(f"{label}: only {eq / total:.6f} of pixels equal one process's")
+        if tag == "seq":
+            launches_eval = {k: sum(r["launches"][k] for r in ranks)
+                             for k in ("em_loop", "read_memory")}
+    print(f"data-parallel phase: wall {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {"launches_ddp": launches_ddp, "launches_dist_eval": launches_eval,
+            "shapes": shapes}
 
 
 def read_global_csv(save_dir: Path) -> dict:
@@ -1623,11 +2087,14 @@ def main() -> int:
         launches, launches_f32, bf16 = main_path(card)
         launches_runner = runner_path(bf16, card)
         launches_session = session_path(bf16, card)
-        launches_eval = eval_path(bf16, card)
+        launches_eval, eval_refs = eval_path(bf16, card)
         del bf16
         train = train_path(card)
+    ddp = ddp_path(card, train, eval_refs)
+    for k, v in ddp["shapes"].items():
+        shapes[k] |= v
     with full_float32():
-        path_errs = check_path_shapes(shapes)
+        path_errs = check_path_shapes(shapes, peaks)
     for e in entries:
         e["max_abs_err"] = max(e["max_abs_err"], path_errs[e["name"]])
         e["launches"] = launches[e["name"]]
@@ -1637,6 +2104,8 @@ def main() -> int:
         e["launches_eval"] = launches_eval[e["name"]]
         e["launches_train"] = train["launches"][e["name"]]
         e["launches_train_f32"] = train["launches_f32"][e["name"]]
+        e["launches_ddp"] = ddp["launches_ddp"][e["name"]]
+        e["launches_dist_eval"] = ddp["launches_dist_eval"][e["name"]]
     faulthandler.cancel_dump_traceback_later()
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
@@ -1648,4 +2117,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(rank_main(sys.argv[2:]) if sys.argv[1:2] == ["--rank"] else main())

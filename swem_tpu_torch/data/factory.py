@@ -87,8 +87,17 @@ def build_dataset_factory(cfg: SWEMConfig) -> Callable:
     return functools.partial(_build_stage_dataset, cfg)
 
 
-def build_train_loader(cfg: SWEMConfig, *, start_iter: int = 0) -> TrainLoader:
+def build_train_loader(cfg: SWEMConfig, *, start_iter: int = 0, shard_id: int = 0,
+                       num_shards: int = 1) -> TrainLoader:
+    """The loader of shard ``shard_id`` of ``num_shards``: ``cfg.data.batch_size``
+    is the global batch, each shard reads ``batch_size // num_shards`` rows of
+    it. A global batch that the shards do not divide raises (the JAX
+    package's factory floors the division, which shrinks the global batch)."""
+    if cfg.data.batch_size % num_shards:
+        raise ValueError(f"batch size {cfg.data.batch_size} does not divide over "
+                         f"{num_shards} processes")
     return TrainLoader(
-        build_dataset_factory(cfg), cfg.data.batch_size, seed=cfg.data.seed,
-        num_workers=cfg.data.num_workers, start_iter=start_iter,
+        build_dataset_factory(cfg), cfg.data.batch_size // num_shards, seed=cfg.data.seed,
+        num_workers=cfg.data.num_workers, start_iter=start_iter, shard_id=shard_id,
+        num_shards=num_shards,
     )

@@ -7,13 +7,21 @@ IterationBasedBatchSampler (datasets/dataloader.py:12-36, samplers/*): an
 infinite, deterministically-seeded stream of host numpy batches.
 Epoch-shuffled indices, per-sample RNG derived from (seed, iteration,
 position), and a process pool that keeps ``PREFETCH`` batches in flight
-while the device runs the step. One process reads the whole batch: the
-JAX package's multi-host sharding waits for the port's DDP.
+while the device runs the step. Under data parallelism each process reads
+its shard of every global batch (``shard_id``/``num_shards``, the
+DistributedSampler's role): rows ``shard_id::num_shards`` of the global
+schedule, so the shards interleave to the one-process batch.
+
+Each worker computes one sample at a time, so it runs OpenMP, BLAS and
+OpenCV on one thread: started with the host's thread counts, every worker
+would start a pool of threads as large as the host, and the workers
+together oversubscribe its cores many times over.
 """
 
 from __future__ import annotations
 
 import multiprocessing as mp
+import os
 import queue
 import threading
 import time
@@ -25,10 +33,17 @@ import numpy as np
 _WORKER_DATASET = None
 PREFETCH = 2  # batches built ahead of the step
 CLOSE_WAIT_S = 60.0  # how long close() waits for the batches in flight
+# the environment the workers start with: native thread pools read it when
+# their libraries load, before any of our code runs in the worker
+WORKER_THREAD_ENV = {"OMP_NUM_THREADS": "1", "OPENBLAS_NUM_THREADS": "1", "MKL_NUM_THREADS": "1"}
+_ENV_LOCK = threading.Lock()  # the parent's environment is set and restored under it
 
 
 def _worker_init(dataset_factory):
+    import cv2
+
     global _WORKER_DATASET
+    cv2.setNumThreads(1)
     _WORKER_DATASET = dataset_factory()
 
 
@@ -70,19 +85,25 @@ class TrainLoader:
 
     dataset_factory: zero-arg callable building the dataset inside each
     worker (datasets hold PIL/cv2 state that should not cross fork
-    boundaries mid-use). batch: the batch size. start_iter resumes the
-    data schedule exactly (dataloader.py:27).
+    boundaries mid-use). batch: this shard's batch size; the global batch
+    is ``batch * num_shards``, of which the shard takes the rows
+    ``shard_id::num_shards``. start_iter resumes the data schedule exactly
+    (dataloader.py:27).
     """
 
     def __init__(self, dataset_factory, batch: int, *, seed: int = 123,
-                 num_workers: int = 8, start_iter: int = 0):
+                 num_workers: int = 8, start_iter: int = 0, shard_id: int = 0,
+                 num_shards: int = 1):
         self.factory = dataset_factory
         self.batch = batch
         self.seed = seed
         self.num_workers = num_workers
         self.it = start_iter
+        self.shard_id = shard_id
+        self.num_shards = num_shards
         probe = dataset_factory()
-        self.shuffler = EpochShuffler(len(probe), seed, start_pos=start_iter * batch)
+        self.shuffler = EpochShuffler(len(probe), seed,
+                                      start_pos=start_iter * batch * num_shards)
         self._pool = None
         self._local_dataset = probe if num_workers == 0 else None
         self._stop = None
@@ -94,10 +115,22 @@ class TrainLoader:
             # spawn: forking a process that has initialized CUDA breaks
             # CUDA in the child; a fresh interpreter only re-imports.
             # Requires the dataset factory to be picklable.
+            # The workers start with WORKER_THREAD_ENV; the parent's own
+            # environment is put back once they have started.
             ctx = mp.get_context("spawn")
-            self._pool = ctx.Pool(
-                self.num_workers, initializer=_worker_init, initargs=(self.factory,)
-            )
+            with _ENV_LOCK:
+                saved = {k: os.environ.get(k) for k in WORKER_THREAD_ENV}
+                os.environ.update(WORKER_THREAD_ENV)
+                try:
+                    self._pool = ctx.Pool(
+                        self.num_workers, initializer=_worker_init, initargs=(self.factory,)
+                    )
+                finally:
+                    for k, v in saved.items():
+                        if v is None:
+                            del os.environ[k]
+                        else:
+                            os.environ[k] = v
 
     def _make_batch(self, indices, it, pool=None, stop=None) -> Optional[Dict[str, np.ndarray]]:
         """The batch of ``indices`` at iteration ``it``; None if ``stop`` is
@@ -138,7 +171,8 @@ class TrainLoader:
         def producer():
             while not stop.is_set():
                 it = self.it
-                indices = self.shuffler.take(self.batch)
+                indices = self.shuffler.take(self.batch * self.num_shards)[
+                    self.shard_id::self.num_shards]
                 self.it += 1
                 try:
                     b = self._make_batch(indices, it, pool, stop)

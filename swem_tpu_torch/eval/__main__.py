@@ -9,9 +9,21 @@ the plain PyTorch path). Examples:
         --data_root /data/YTVOS19/valid_all_frames --resume ckpts/swem.pth
 
 ``--resume`` is a reference ``.pth``; an orbax directory is read by the JAX
-package. ``--distributed`` (with ``--coordinator``, ``--num_processes``,
-``--process_id``) and ``--obj_parallel > 1`` are not ported and raise
+package. ``--obj_parallel > 1`` is not ported and raises
 ``NotImplementedError``.
+
+Distributed evaluation: each process evaluates a round-robin slice of the
+videos into the shared ``--log_dir`` and process 0 scores them:
+
+    python -m torch.distributed.run --standalone --nproc_per_node 8 \
+        -m swem_tpu_torch.eval --distributed --eval_set DAVIS17 ...
+    python -m swem_tpu_torch.eval --coordinator host0:12345 --num_processes 2 \
+        --process_id 0 ...   # and process 1
+
+``--distributed`` alone takes the group from the environment (``env://``);
+the three flags rendezvous at ``tcp://<coordinator>``. The group is Gloo
+(it only waits at a barrier); each process computes on ``--device`` when
+given, else on ``cuda:<LOCAL_RANK>``.
 """
 
 from __future__ import annotations
@@ -49,12 +61,13 @@ def get_args(argv=None):
     p.add_argument("--obj_parallel", type=int, default=1,
                    help="object slots over this many devices (not ported: must be 1)")
     p.add_argument("--distributed", action="store_true",
-                   help="multi-process evaluation (not ported)")
-    p.add_argument("--coordinator", default=None, help="multi-process evaluation (not ported)")
-    p.add_argument("--num_processes", type=int, default=None,
-                   help="multi-process evaluation (not ported)")
-    p.add_argument("--process_id", type=int, default=None,
-                   help="multi-process evaluation (not ported)")
+                   help="each process evaluates a disjoint slice of the videos, process 0 "
+                        "scores them; the group from the environment (env://) unless "
+                        "--coordinator etc. are given")
+    p.add_argument("--coordinator", default=None,
+                   help="host:port rendezvous (with --num_processes and --process_id)")
+    p.add_argument("--num_processes", type=int, default=None)
+    p.add_argument("--process_id", type=int, default=None)
     p.add_argument("--visualize", action="store_true")
     p.add_argument("--scales", type=int, nargs="+", default=[480],
                    help="multi-scale inference (score averaging)")
@@ -92,16 +105,25 @@ def build_config(args):
 
 def main(argv=None):
     args = get_args(argv)
-    multi_process = (args.coordinator, args.num_processes, args.process_id) != (None,) * 3
-    if args.distributed or multi_process or args.obj_parallel > 1:
+    if args.obj_parallel > 1:
         from swem_tpu_torch.eval.evaluator import OBJ_PARALLEL_TODO
 
         raise NotImplementedError(OBJ_PARALLEL_TODO)
+    flags = (args.coordinator, args.num_processes, args.process_id)
+    if not args.distributed and flags == (None,) * 3:
+        return _evaluate(args, args.device)
+    from swem_tpu_torch import parallel
+
+    with parallel.process_group(*flags, backend="gloo", device=args.device) as device:
+        return _evaluate(args, device)
+
+
+def _evaluate(args, device):
     from swem_tpu_torch import registry
 
     cfg = build_config(args)
     evaluator = registry.get_evaluator(cfg, registry.load_state_dict(cfg, args.resume),
-                                       device=args.device)
+                                       device=device)
     results = evaluator.val()
     evaluator.logger.info("Evaluation done.")
     return results

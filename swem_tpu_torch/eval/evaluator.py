@@ -23,9 +23,13 @@ the weights do not depend on the slot count.
 Frames/s is ``FrameSecondMeter``'s: each span covers one video's (or
 batch's) inference, its uploads included, and ends with the predictions
 on the host; runners are built and warmed up outside it, and PNG I/O lies
-outside it. One process evaluates every video: the JAX package's multi-host
-split (``--distributed``) and object parallelism (``obj_parallel``) are not
-ported.
+outside it.
+
+Distributed evaluation (``parallel.init_distributed``): each process
+evaluates a round-robin slice of the videos (sequentially) or of the batch
+plan (``video_batch > 1``) into the shared results tree, all wait at a
+barrier, and process 0 alone scores the PNGs. Object parallelism
+(``obj_parallel > 1``) is not ported.
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from swem_tpu_torch import parallel
 from swem_tpu_torch.config import SWEMConfig
 from swem_tpu_torch.data.davis_test import DavisTestSet
 from swem_tpu_torch.data.palette import davis_palette, save_seg_mask, ytvos_palette
@@ -48,8 +53,8 @@ from swem_tpu_torch.registry import register_evaluator
 from swem_tpu_torch.utils import FrameSecondMeter, mkdir, setup_logger
 from swem_tpu_torch.utils.host_io import AsyncWriter, prefetch
 
-OBJ_PARALLEL_TODO = ("object parallelism (obj_parallel > 1) and multi-process evaluation "
-                     "(--distributed) are not ported yet (ROADMAP.md Queue 1 item 7)")
+OBJ_PARALLEL_TODO = ("object parallelism (obj_parallel > 1) is not ported yet (ROADMAP.md "
+                     "Queue 1 item 7)")
 
 
 def _preprocess(size: Tuple[int, int]):
@@ -93,7 +98,10 @@ class Evaluator:
                                      cfg.exp_name, "results", self.eval_set)
         self.out_root = os.path.join(self.save_dir, "output")
         mkdir(self.out_root)
-        self.logger = logger or setup_logger("swem_eval", self.save_dir, "test_stage")
+        # this process's share of the videos: a round-robin slice
+        self._pid, self._nproc = parallel.process_index(), parallel.process_count()
+        log_name = "test_stage" if self._nproc == 1 else f"test_stage_p{self._pid}"
+        self.logger = logger or setup_logger("swem_eval", self.save_dir, log_name)
         self._runners: Dict[tuple, ChunkedVideoRunner] = {}
         self.fps: Optional[float] = None
 
@@ -269,15 +277,15 @@ class Evaluator:
                          os.path.join(overlay_dir, f"{video.frame_names[t]}.png"), self.palette)
 
     def evaluate(self) -> float:
-        """Run every video and write its PNGs; returns frames/s (also kept
-        as ``self.fps``)."""
+        """Run this process's videos and write their PNGs; returns frames/s
+        (also kept as ``self.fps``)."""
         vb = self.cfg.eval.video_batch
         if vb > 1:
             return self._evaluate_batched(vb)
         fps = FrameSecondMeter()
+        mine = list(range(len(self.dataset)))[self._pid::self._nproc]
         with AsyncWriter() as writer:
-            for idx, video in enumerate(prefetch(self.dataset.__getitem__,
-                                                 range(len(self.dataset)))):
+            for idx, video in zip(mine, prefetch(self.dataset.__getitem__, mine)):
                 bucket = self._slot_bucket(video.n_objs)
                 self.logger.info(f"Testing video {idx}: {video.name} ({video.frames.shape[0]} "
                                  f"frames, {video.n_objs} objects -> {bucket} slots)")
@@ -300,7 +308,8 @@ class Evaluator:
         little; batch P+1 decodes while batch P runs. Padded frames touch
         only their own video's memory, and a video's injections only its
         own batch row, so each video's result is its sequential one up to
-        the batched convolutions' summation order.
+        the batched convolutions' summation order. Each process takes a
+        round-robin slice of the whole batches.
         """
         groups: Dict[tuple, list] = {}
         for idx in range(len(self.dataset)):
@@ -311,6 +320,7 @@ class Evaluator:
             items.sort(key=lambda it: it[1])
             indices = [i for i, _ in items]
             plan += [(key[-1], indices[i:i + vb]) for i in range(0, len(indices), vb)]
+        plan = plan[self._pid::self._nproc]
         fps = FrameSecondMeter()
         batches = prefetch(lambda p: (p[0], [self.dataset[j] for j in p[1]]), plan, depth=1)
         with AsyncWriter() as writer:
@@ -339,6 +349,11 @@ class Evaluator:
                              per_object_csv=per_object_csv)
 
     def val(self) -> Optional[Dict[str, float]]:
-        """Evaluate, then score DAVIS val (global results as a dict)."""
+        """Evaluate, then score DAVIS val (global results as a dict). Under
+        distributed evaluation every process waits for the others' PNGs and
+        process 0 alone scores them (the others return None)."""
         self.evaluate()
+        parallel.barrier(f"{self.eval_set} PNGs")
+        if self._pid != 0:
+            return None
         return self.get_metrics(per_object_csv=self.cfg.eval.per_object_csv)

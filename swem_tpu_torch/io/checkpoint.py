@@ -118,9 +118,10 @@ def save_train_checkpoint(ckpt_dir: str, snapshot: dict) -> None:
     _save_atomic(snapshot["model"], os.path.join(ckpt_dir, VARIABLES_FILE))
 
 
-def load_train_checkpoint(path: str) -> dict:
-    """A ``state.pth`` written by ``save_train_checkpoint``, on the CPU."""
-    return torch.load(path, map_location="cpu", weights_only=True)
+def load_train_checkpoint(path: str, map_location="cpu") -> dict:
+    """A ``state.pth`` written by ``save_train_checkpoint``, its tensors on
+    ``map_location``."""
+    return torch.load(path, map_location=map_location, weights_only=True)
 
 
 _TV_SKIP = re.compile(r"^(fc\.|layer[4-9]\.)|num_batches_tracked$")

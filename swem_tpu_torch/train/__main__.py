@@ -12,17 +12,27 @@ pretrain, 1 DAVIS, 2 YouTube-VOS, 3 DAVIS + YouTube-VOS. Examples:
 ``state.pth``, or with ``--from_scratch`` its ``variables.pth``) or a
 reference ``.pth``; an orbax directory is read by the JAX package.
 ``--from_scratch`` is needed for a stage transfer: without it the run
-resumes the earlier stage's step. ``--distributed`` (with
-``--coordinator``, ``--num_processes``, ``--process_id``) is not ported
-and raises ``NotImplementedError``.
+resumes the earlier stage's step.
+
+Data parallelism, one process per device (``--batch_size`` is the global
+batch, split evenly over the processes):
+
+    python -m torch.distributed.run --standalone --nproc_per_node 8 \
+        -m swem_tpu_torch.train --distributed --stage 3 --data_root /data ...
+    python -m swem_tpu_torch.train --coordinator host0:12345 --num_processes 2 \
+        --process_id 0 --stage 3 --data_root /data ...   # and process 1
+
+``--distributed`` alone joins the group that the environment describes
+(``env://``, as ``torch.distributed.run`` sets it); the three flags
+rendezvous at ``tcp://<coordinator>``. Each process computes on
+``--device`` when given, else on ``cuda:<LOCAL_RANK>``. ``--dist_backend``
+defaults to NCCL on CUDA and Gloo on the CPU; NCCL refuses two processes
+on one card, so such a run needs ``--dist_backend gloo``.
 """
 
 from __future__ import annotations
 
 import argparse
-
-DISTRIBUTED_TODO = ("multi-process training (--distributed, --coordinator, --num_processes, "
-                    "--process_id) is not ported yet: ROADMAP Queue 1 item 7 (DDP)")
 
 
 def get_args(argv=None):
@@ -56,10 +66,15 @@ def get_args(argv=None):
     p.add_argument("--backbone_init", default=None,
                    help="torchvision resnet .pth files 'key.pth,value.pth' for "
                         "ImageNet backbone init")
-    p.add_argument("--distributed", action="store_true", help="multi-process (not ported)")
-    p.add_argument("--coordinator", default=None, help="multi-process (not ported)")
-    p.add_argument("--num_processes", type=int, default=None, help="multi-process (not ported)")
-    p.add_argument("--process_id", type=int, default=None, help="multi-process (not ported)")
+    p.add_argument("--distributed", action="store_true",
+                   help="data parallel over processes; the group from the environment "
+                        "(env://) unless --coordinator etc. are given")
+    p.add_argument("--coordinator", default=None,
+                   help="host:port rendezvous (with --num_processes and --process_id)")
+    p.add_argument("--num_processes", type=int, default=None)
+    p.add_argument("--process_id", type=int, default=None)
+    p.add_argument("--dist_backend", default=None, choices=["nccl", "gloo"],
+                   help="process group backend (default: NCCL on CUDA, Gloo on the CPU)")
     p.add_argument("--remat", default=None, nargs="?", const="encoder",
                    choices=["encoder", "block"],
                    help="recompute activations in the backward pass (torch.utils.checkpoint): "
@@ -109,13 +124,24 @@ def build_config(args):
 
 def main(argv=None):
     args = get_args(argv)
-    multi_process = (args.coordinator, args.num_processes, args.process_id) != (None,) * 3
-    if args.distributed or multi_process:
-        raise NotImplementedError(DISTRIBUTED_TODO)
+    flags = (args.coordinator, args.num_processes, args.process_id)
+    if not args.distributed and flags == (None,) * 3:
+        return _train(args, args.device)
+    import torch
+
+    from swem_tpu_torch import parallel
+
+    on_cpu = args.device is not None and torch.device(args.device).type == "cpu"
+    backend = args.dist_backend or ("gloo" if on_cpu else "nccl")
+    with parallel.process_group(*flags, backend=backend, device=args.device) as device:
+        return _train(args, device)
+
+
+def _train(args, device):
     from swem_tpu_torch.io.checkpoint import init_backbones
     from swem_tpu_torch.train.loop import Trainer
 
-    trainer = Trainer(build_config(args), device=args.device)
+    trainer = Trainer(build_config(args), device=device)
     if args.backbone_init:
         paths = args.backbone_init.split(",")
         init_backbones(trainer.model, paths[0], paths[1] if len(paths) > 1 else None)

@@ -10,6 +10,13 @@ background thread: ``state.pth`` (the whole run) and ``variables.pth``
 
 Curriculum: the frame skip is a pure function of the iteration inside each
 loader worker, so a resumed run's batches are an uninterrupted run's.
+
+In a process group (``parallel.init_distributed``) each process reads its
+shard of every global batch and the step averages the gradients
+(``trainer.data_parallel``); the logged losses are the global ones (one
+all-reduce per log period); process 0 alone writes checkpoints and
+tensorboard scalars, and overlays are drawn only in a single process, as
+the JAX package runs it. Every process loads ``state.pth`` itself on resume.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from swem_tpu_torch import parallel
 from swem_tpu_torch.config import SWEMConfig, resolve_device
 from swem_tpu_torch.data.factory import build_train_loader
 from swem_tpu_torch.io.checkpoint import (
@@ -57,7 +65,9 @@ class Trainer:
                                     cfg.exp_name)
         mkdir(self.exp_dir)
         self.ckpt_dir = os.path.join(self.exp_dir, "checkpoints")
-        self.logger = logger or setup_logger("swem_train", self.exp_dir, "train_stage")
+        self.rank, self.world = parallel.process_index(), parallel.process_count()
+        log_name = "train_stage" if self.world == 1 else f"train_stage_p{self.rank}"
+        self.logger = logger or setup_logger("swem_train", self.exp_dir, log_name)
         self.max_iter = max_iter_for_stage(cfg.solver)
         # the Gaussian locality read is inference-only in the reference
         model = SWEM(dataclasses.replace(cfg.model, n_kernel=0), device=device)
@@ -74,34 +84,36 @@ class Trainer:
         nparams = sum(p.numel() for p in self.model.parameters())
         self.logger.info(
             f"SWEM trainer: stage {cfg.solver.stage_name}, {nparams / 1e6:.2f}M params, "
-            f"device {self.device}, dtype {cfg.model.dtype}, batch {cfg.data.batch_size}, "
-            f"max_iter {self.max_iter}")
+            f"device {self.device}, dtype {cfg.model.dtype}, global batch "
+            f"{cfg.data.batch_size} over {self.world} process(es), max_iter {self.max_iter}")
         self.writer = None
-        try:
-            from tensorboardX import SummaryWriter
+        if self.rank == 0:  # process 0 alone writes the scalars
+            try:
+                from tensorboardX import SummaryWriter
 
-            self.writer = SummaryWriter(os.path.join(self.exp_dir, "tb"))
-        except ImportError:  # scalars and overlays are optional logging
-            pass
+                self.writer = SummaryWriter(os.path.join(self.exp_dir, "tb"))
+            except ImportError:  # scalars and overlays are optional logging
+                pass
 
     # ------------------------------------------------------------------ #
     def reset_optimizer(self) -> None:
         """A fresh optimizer and LR schedule over the current weights; the
         step is kept."""
         step = self.state.step
-        self.state = create_train_state(self.model, self.cfg.solver)
+        self.state = create_train_state(self.model, self.cfg.solver, forward=self.state.forward)
         self.state.step = step
 
     def _resume(self, path: str, from_scratch: bool) -> None:
         """The whole run from ``<path>/state.pth`` unless ``from_scratch``;
         otherwise the weights only, from ``<path>/variables.pth`` or a
         reference ``.pth``, a single-object value encoder widened, with a
-        fresh optimizer at step 0. An orbax directory raises."""
+        fresh optimizer at step 0. An orbax directory raises. Every process
+        reads the files itself, onto its own device."""
         from swem_tpu_torch import registry
 
         state_path = os.path.join(path, STATE_FILE)
         if not from_scratch and os.path.isfile(state_path):
-            snap = load_train_checkpoint(state_path)
+            snap = load_train_checkpoint(state_path, map_location=self.device)
             self.model.load_state_dict(snap["model"])
             self.state.optimizer.load_state_dict(snap["optimizer"])
             self.state.scheduler.load_state_dict(snap["scheduler"])
@@ -112,13 +124,17 @@ class Trainer:
         var_path = os.path.join(path, VARIABLES_FILE)
         src = var_path if os.path.isfile(var_path) else path
         self.model.load_state_dict(registry.load_state_dict(self.cfg, src))
-        self.state = create_train_state(self.model, self.cfg.solver)
+        self.state = create_train_state(self.model, self.cfg.solver, forward=self.state.forward)
         self.logger.info(f"Loaded model weights from {src}")
 
     def save(self, step: int) -> None:
         """Checkpoint: the model, optimizer, LR scheduler and step copied to
         the host now (the next step updates them in place), the disk write
-        on the writer thread."""
+        on the writer thread; process 0 alone writes (the processes hold
+        the same state), the model's own ``state_dict``, not the data
+        parallel wrapper's."""
+        if self.rank != 0:
+            return
         snap = to_host({"model": self.model.state_dict(),
                         "optimizer": self.state.optimizer.state_dict(),
                         "scheduler": self.state.scheduler.state_dict(),
@@ -159,7 +175,8 @@ class Trainer:
     def train(self):
         cfg = self.cfg
         start_iter = self.state.step
-        loader = build_train_loader(cfg, start_iter=start_iter)
+        loader = build_train_loader(cfg, start_iter=start_iter, shard_id=self.rank,
+                                    num_shards=self.world)
         meters = {k: AvgMeter(100) for k in ("total_loss", "main_loss", "aux_loss")}
         seed = cfg.data.seed + RNG_OFFSET
         t_start = time.perf_counter()
@@ -198,7 +215,9 @@ class Trainer:
                 if it % cfg.log_period == 0 or it == self.max_iter:
                     self._log(it, start_iter, t_start, pending, meters, skips)
                     pending.clear()
-                if (cfg.vis_period and self.writer is not None and it % cfg.vis_period == 0):
+                # one process only: the overlay's forward is this process's alone
+                if (cfg.vis_period and self.writer is not None and self.world == 1
+                        and it % cfg.vis_period == 0):
                     self._log_overlays(batch, step_generator(seed, it), it)
                 if it % cfg.save_period == 0 or it == self.max_iter:
                     self.save(it)
@@ -212,9 +231,11 @@ class Trainer:
         return self.state
 
     def _log(self, it: int, start_iter: int, t_start: float, pending, meters, skips) -> None:
-        """One host sync for the whole window: every step's losses are averaged."""
+        """One host sync for the whole window: every step's losses are
+        averaged, over the processes too (one all-reduce)."""
         keys = list(meters)
-        values = torch.stack([torch.stack([m[k] for k in keys]) for m in pending]).cpu()
+        values = torch.stack([torch.stack([m[k] for k in keys]) for m in pending])
+        values = parallel.global_mean(values).cpu()
         for row in values.tolist():
             for k, v in zip(keys, row):
                 meters[k].update(v)

@@ -18,18 +18,31 @@ Batch layout (channel-last, tensors on the model's device):
 
 The step runs under ``config.full_float32`` (TF32 off for float32 work, in
 the backward pass too), with gradients on.
+
+Data parallelism: with a process group up, the unrolled forward runs
+through ``DistributedDataParallel``, which averages the gradients over the
+processes in the backward pass. Every loss term is a batch mean of
+per-clip terms, so the average of equal per-process batches is the global
+batch's gradient and every process takes the same optimizer step. Each
+process draws the initial bases and keep masks for the global batch and
+keeps its rows (``parallel.shard_rows``), the rows its loader shard holds,
+so that N processes compute what one process computes on the global batch.
 """
 
 from __future__ import annotations
 
+import warnings
 from dataclasses import dataclass
 from functools import partial
 from typing import Callable, Dict, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.nn.parallel import DistributedDataParallel
 from torch.utils.checkpoint import checkpoint
 
+from swem_tpu_torch import parallel
 from swem_tpu_torch.config import SWEMConfig, SolverConfig, full_float32
 from swem_tpu_torch.engine import _flat_mv, _flat_qk
 from swem_tpu_torch.models import em
@@ -38,19 +51,63 @@ from swem_tpu_torch.train.losses import make_criterion
 from swem_tpu_torch.train.solver import make_optimizer
 
 
+class UnrolledForward(torch.nn.Module):
+    """``_unrolled_forward`` of ``model`` as one module's ``forward``:
+    ``DistributedDataParallel`` prepares its gradient sync only in its own
+    forward, so the unroll, which calls the model's stages one by one, runs
+    inside one."""
+
+    def __init__(self, model: SWEM):
+        super().__init__()
+        self.model = model
+
+    def forward(self, frames, init_mask, valid_obj, bases: em.Bases,
+                keeps: Optional[Sequence[torch.Tensor]] = None,
+                remat: Optional[str] = None) -> torch.Tensor:
+        return _unrolled_forward(self.model, frames, init_mask, valid_obj, bases, keeps, remat)
+
+
+def data_parallel(model: SWEM) -> torch.nn.Module:
+    """The train step's forward module: ``UnrolledForward(model)``, in
+    ``DistributedDataParallel`` when a process group is up (at any world
+    size). Every parameter gets a gradient, so no unused-parameter search;
+    the buffers (``FrozenBatchNorm`` constants) are not broadcast, as the
+    reference runs it."""
+    forward = UnrolledForward(model)
+    if not dist.is_initialized():
+        return forward
+    dev = model.device
+    if dev.type == "cuda":
+        device_ids = [torch.cuda.current_device() if dev.index is None else dev.index]
+    else:
+        device_ids = None
+    with warnings.catch_warnings():
+        # newer PyTorch deprecates broadcast_buffers for forward_sync_buffers,
+        # which older ones lack; both take broadcast_buffers=False
+        warnings.filterwarnings("ignore", message=".*broadcast_buffers", category=FutureWarning)
+        return DistributedDataParallel(forward, device_ids=device_ids, broadcast_buffers=False)
+
+
 @dataclass
 class TrainState:
-    """The model, its optimizer and LR scheduler, and the step (a host int)."""
+    """The model, its optimizer and LR scheduler, the step (a host int) and
+    the forward module the step runs (``data_parallel``)."""
 
     model: SWEM
     optimizer: torch.optim.Optimizer
     scheduler: torch.optim.lr_scheduler.MultiStepLR
+    forward: torch.nn.Module
     step: int = 0
 
 
-def create_train_state(model: SWEM, solver: SolverConfig) -> TrainState:
+def create_train_state(model: SWEM, solver: SolverConfig,
+                       forward: Optional[torch.nn.Module] = None) -> TrainState:
+    """A fresh optimizer and schedule over ``model`` at step 0; ``forward``
+    is kept when given (a new ``DistributedDataParallel`` would sync the
+    processes again), else made by ``data_parallel``."""
     opt, sched = make_optimizer(solver, model.parameters())
-    return TrainState(model=model.train(), optimizer=opt, scheduler=sched, step=0)
+    return TrainState(model=model.train(), optimizer=opt, scheduler=sched,
+                      forward=forward if forward is not None else data_parallel(model))
 
 
 def step_generator(seed: int, step: int) -> torch.Generator:
@@ -146,16 +203,25 @@ def _unrolled_forward(model: SWEM, frames, init_mask, valid_obj, bases: em.Bases
 
 def draw_step(model: SWEM, generator: Optional[torch.Generator], batch_size: int,
               n_frames: int):
-    """One step's draws from ``generator``: the initial bases (batch B),
-    then, with ``p_drop > 0``, the keep masks of the T-1 supervised frames.
+    """One step's draws from ``generator``: the initial bases, then, with
+    ``p_drop > 0``, the keep masks of the T-1 supervised frames. Drawn for
+    the global batch (``batch_size`` rows in each of the processes) and
+    cut to this process's rows (``parallel.shard_rows``).
     Returns (bases, keeps or None), on the model's device."""
     cfg = model.cfg
-    bases = em.init_bases(generator, batch_size, cfg.max_objs, cfg.keydim, cfg.valdim,
-                          cfg.num_bases, device=model.device)
+    rank, world = parallel.process_index(), parallel.process_count()
+
+    def mine(x):
+        return parallel.shard_rows(x, rank, world).to(model.device)
+
+    bases = em.init_bases(generator, batch_size * world, cfg.max_objs, cfg.keydim, cfg.valdim,
+                          cfg.num_bases)
+    bases = em.Bases(mine(bases.kappa), mine(bases.nu), mine(bases.zita))
     keeps = None
     if cfg.p_drop > 0:
-        keeps = [em.draw_keep(generator, batch_size, cfg.max_objs, 2 * cfg.num_bases,
-                              cfg.p_drop, device=model.device) for _ in range(n_frames - 1)]
+        keeps = [mine(em.draw_keep(generator, batch_size * world, cfg.max_objs,
+                                   2 * cfg.num_bases, cfg.p_drop))
+                 for _ in range(n_frames - 1)]
     return bases, keeps
 
 
@@ -165,9 +231,11 @@ def make_train_step(cfg: SWEMConfig, remat: Optional[str] = None) -> Callable:
 
     Updates ``state`` in place (parameters, optimizer, scheduler, step + 1)
     and returns the loss terms as detached device tensors (``p`` a host
-    float), so that the caller syncs when it chooses. The initial bases
-    and keep masks come from ``generator`` unless given (the parity tests
-    hand in the JAX package's draws).
+    float), so that the caller syncs when it chooses; under data
+    parallelism they are this process's (``parallel.global_mean`` makes
+    them global). The initial bases and keep masks come from ``generator``
+    unless given for the rows of ``batch`` (the parity tests hand in the
+    JAX package's draws).
     """
     criterion = make_criterion(cfg.loss)
 
@@ -182,8 +250,7 @@ def make_train_step(cfg: SWEMConfig, remat: Optional[str] = None) -> Callable:
             if bases is None:
                 bases, drawn = draw_step(model, generator, frames.shape[0], frames.shape[1])
                 keeps = drawn if keeps is None else keeps
-            logits = _unrolled_forward(model, frames, init_mask, valid_obj, bases, keeps,
-                                       remat=remat)
+            logits = state.forward(frames, init_mask, valid_obj, bases, keeps, remat=remat)
             losses = criterion(logits, label[:, 1:], state.step, valid_obj)
             state.optimizer.zero_grad(set_to_none=True)
             losses["total_loss"].backward()

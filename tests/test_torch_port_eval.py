@@ -324,7 +324,9 @@ def cli_argv(root, pth, log_dir, *extra):
 def test_cli_on_the_cpu(pair, fake_davis, tmp_path, monkeypatch):
     """``python -m swem_tpu_torch.eval --device cpu`` in-process: a .pth in,
     global_results-DAVIS17.csv out. Without --device it wants CUDA and
-    raises without a card, and the unported flags raise."""
+    raises without a card, object parallelism raises, and the multi-process
+    flags join a process group: --distributed alone the environment's (none
+    here), the three rendezvous flags only together."""
     # eval.py's flags have no --mdim: the decoder is the flagship's 256 wide
     cfg = dataclasses.replace(pair[2].cfg, mdim=256)
     pth = str(tmp_path / "swem.pth")
@@ -336,9 +338,15 @@ def test_cli_on_the_cpu(pair, fake_davis, tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         cli.main(cli_argv(fake_davis, pth, tmp_path / "logs2"))
-    for flag in (["--distributed"], ["--obj_parallel", "2"], ["--num_processes", "4"],
-                 ["--process_id", "0"], ["--coordinator", "localhost:1234"]):
-        with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="obj_parallel"):
+        cli.main(cli_argv(fake_davis, pth, tmp_path / "logs3", "--device", "cpu",
+                          "--obj_parallel", "2", "--distributed"))
+    for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(k, raising=False)
+    for flag, match in ((["--distributed"], "RANK"), (["--num_processes", "4"], "go together"),
+                        (["--process_id", "0"], "go together"),
+                        (["--coordinator", "localhost:1234"], "go together")):
+        with pytest.raises(ValueError, match=match):
             cli.main(cli_argv(fake_davis, pth, tmp_path / "logs3", "--device", "cpu", *flag))
     args = cli.get_args(cli_argv(fake_davis, pth, tmp_path, "--n_kernel", "4", "--sigma", "5"))
     cfg = cli.build_config(args)

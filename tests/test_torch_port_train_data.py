@@ -314,7 +314,7 @@ def test_backbone_init_matches_jax_converter(tmp_path):
     assert all(torch.equal(after[k], before[k]) for k in after if k not in ref)
 
 
-def test_cli_trains_checkpoints_and_resumes_on_the_cpu(data_root, tmp_path):
+def test_cli_trains_checkpoints_and_resumes_on_the_cpu(data_root, tmp_path, monkeypatch):
     args = ["--device", "cpu", "--stage", "2", "--data_root", data_root, "--backbone",
             "resnet18", "--key_dim", "8", "--val_dim", "16", "--num_bases", "4", "--em_iters",
             "2", "--top_l", "2", "--crop_size", "32", "--batch_size", "2", "--num_workers", "0",
@@ -325,9 +325,14 @@ def test_cli_trains_checkpoints_and_resumes_on_the_cpu(data_root, tmp_path):
     ckpt = os.path.join(str(tmp_path), "SWEM", "S2", "cli", "checkpoints")
     state = cli.main(args + ["--total_iters", "2", "5", "--resume", ckpt])  # not from scratch
     assert state.step == 5
-    for flag in (["--distributed"], ["--coordinator", "localhost:1234"],
-                 ["--num_processes", "2"]):
-        with pytest.raises(NotImplementedError, match="item 7"):
+    # the multi-process flags join a process group: --distributed alone the
+    # environment's (none here), the three rendezvous flags only together
+    for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(k, raising=False)
+    for flag, match in ((["--distributed"], "RANK"),
+                        (["--coordinator", "localhost:1234"], "go together"),
+                        (["--num_processes", "2"], "go together")):
+        with pytest.raises(ValueError, match=match):
             cli.main(args + flag)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
