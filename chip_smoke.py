@@ -75,6 +75,20 @@ Needs one CUDA device and the CUDA toolkit; imports nothing of JAX or of
    ``add_objects`` with a third box, which must hold index 3, the memory
    in use growing by far less than one copy of the weights. Prints the
    push's wall p50/p95 and the device's busy ms per push.
+7b. export: the same bfloat16 model exported (``io/export.py``) as an
+   injectable artifact in chunks of 4 (programs init, chunk_4, chunk_2,
+   chunk_1 and memorize), each program's export wall and every file's
+   size printed, no program a tenth of the weights' bytes. A fresh
+   process (``chip_smoke.py --replay <dir>``, which must import neither
+   the port's models and engine nor JAX) loads it, replays a T = 12 uint8
+   video with slot 2 injected at frame 5 (counted, again for the bits,
+   then three timed calls) and runs a session of 6 steps, one of them
+   ``add_objects``. Held against the live ``ChunkedVideoRunner(chunk=4,
+   injectable=True)`` and ``StreamingSession`` on the artifact's bases:
+   >= 99.9% of index pixels equal (the exact share printed), each kernel's
+   launches equal to the live runner's (T - 1), the second replay
+   bit-identical; frames/s (median of 3) and peak device memory of the
+   replay and the live runner.
 8. the evaluator, with the same weights: a DAVIS-shaped tree written to
    disk (3 videos of 12, 17 and 20 JPEG frames at 480x854 with 2, 2 and 3
    moving boxes and their palette-PNG annotations: slot buckets 2 and 4 of
@@ -136,7 +150,14 @@ Needs one CUDA device and the CUDA toolkit; imports nothing of JAX or of
    itself leaves K1's n-round limit on a shape's draw (the training shapes'
    P = 576 at 4 rounds: chaos at tau), that shape is held at 1 round on
    the draw and at n rounds on a draw of x std 0.15, where float32 must
-   be within the limit; on any other shape that is a failure.
+   be within the limit; on any other shape that is a failure. Then both
+   kernels at the widths the CLIs take beyond the flagship's, padded inside
+   the ops (``NEW_SHAPES``: (Ck, L) = (8, 4), (24, 12), (100, 300), (512,
+   128), (256, 512) at P = 576, K2 at Lm = 2 L and Cv 512, so 2 Lm = 2048
+   in column blocks at the last): K1 at 1 round at its tight limit and at 4
+   rounds where the float32 loop itself is within that limit on the draw
+   (else on x std 0.15; else the 4 rounds are reported, not held), K2 in
+   the three cases; each rerun for the bits and timed beside its bound.
 10. data parallelism, 2 ranks (Gloo, both on ``cuda:0``, on a one-card
    machine; NCCL with one card per rank where there are two or more), each
    rank a process with a timeout (a rank that fails or hangs fails the run)
@@ -162,7 +183,8 @@ Needs one CUDA device and the CUDA toolkit; imports nothing of JAX or of
 11. one JSON line with every kernel's numbers (``launches`` from the
    bfloat16 run, ``launches_f32`` from the float32 one, ``launches_runner``
    from phase 6's index runner, ``launches_session`` over phase 7's 12
-   pushes, ``launches_eval`` from phase 8's bfloat16 ``val``,
+   pushes, ``launches_export`` from phase 7b's replay (equal to the live
+   runner's), ``launches_eval`` from phase 8's bfloat16 ``val``,
    ``launches_train`` and ``launches_train_f32`` from phase 8b's 10-step
    runs, ``launches_ddp`` from phase 10's 10-step bfloat16 run and
    ``launches_dist_eval`` from its sequential evaluation, each summed over
@@ -185,6 +207,10 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 T_VIDEO = 10
 T_RUNNER, CHUNK, N_PUSH = 24, 16, 12
+# the export phase: an injectable artifact in chunks of EXPORT_CHUNK, a video
+# of T_EXPORT frames with slot 2 injected at EXPORT_INJECT_AT, N_EXPORT_PUSH
+# session steps; the fresh replay process's bound
+T_EXPORT, EXPORT_CHUNK, EXPORT_INJECT_AT, N_EXPORT_PUSH, REPLAY_TIMEOUT_S = 12, 4, 5, 6, 300
 IN_SIZE, OUT_SIZE = (480, 864), (480, 854)
 # the evaluator phase: DAVIS videos (name, T, moving boxes) at EVAL_HW, run at
 # EVAL_IN; multi-scale scales; one YouTube-VOS video with a late object
@@ -214,6 +240,10 @@ DDP_ITERS, RANK_TIMEOUT_S = TRAIN_ITERS, 300
 TRAIN_EM_SHAPES = {(b, 2, (TRAIN_CROP // 16) ** 2, 128, 128)
                    for b in (TRAIN_B, TRAIN_B // DDP_WORLD, 2)}
 CHAOTIC_X_STD = 0.15
+# phase 9's new shapes (Ck, L) at B 1, N 2, P NEW_P, K2's Lm = 2 L and Cv 512:
+# widths of --key_dim and --num_bases off the flagship's, padded inside the
+# ops; K1 also at NEW_ROUNDS rounds
+NEW_SHAPES, NEW_P, NEW_ROUNDS = ((8, 4), (24, 12), (100, 300), (512, 128), (256, 512)), 576, 4
 # peak rates of an H100 (NVIDIA data sheet): FP32 outside the tensor cores, memory,
 # dense TF32 on the tensor cores
 PEAKS = {"sxm": (67e12, 3.35e12, 495e12), "pcie": (51e12, 2.0e12, 378e12)}
@@ -441,6 +471,18 @@ def read_case(name: str, inputs, tau: float) -> float:
     return max(errs)
 
 
+def read_bound(B, N, P, Ck, Lm, Cv, peaks) -> tuple:
+    """K2's least time at (B, N, P, Ck, Lm, Cv): (route bound ms, its limit,
+    FP32 bound ms, its limit). The affinity and the value read; bytes: qk,
+    mk, mv and base_valid read once, mem_out and exp_aff written once. The
+    kernel runs its products as 3xTF32 on the tensor cores (three TF32
+    products each); the FP32 CUDA-core bound beside it."""
+    flops = B * (2.0 * P * Ck * (2 * N * Lm) + 2.0 * P * (2 * Lm) * Cv * N)
+    nbytes = 4.0 * (B * P * Ck + B * N * 2 * Lm * (Ck + Cv) + B * N * P * Cv + B * N * 2 * Lm * P) \
+        + B * N * 2 * Lm
+    return bound_ms(3 * flops, nbytes, (peaks[2], peaks[1])) + bound_ms(flops, nbytes, peaks)
+
+
 def check_read(peaks) -> dict:
     """K2 against its plain version in float64; returns the kernel's JSON entry."""
     import torch
@@ -482,13 +524,7 @@ def check_read(peaks) -> dict:
     mask = valid.reshape(B * N, 1, 1, 2 * Lm)
     library = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
                                                              scale=1.0 / tau))
-    flops = 2.0 * P * Ck * (2 * N * Lm) + 2.0 * P * (2 * Lm) * Cv * N
-    nbytes = 4.0 * (qk.numel() + mk.numel() + mv.numel() + B * N * P * Cv + B * N * 2 * Lm * P) \
-        + valid.numel()
-    # the kernel runs its products as 3xTF32: three TF32 products each, on the
-    # tensor cores; the FP32 CUDA-core bound is printed beside it
-    b_ms, b_by = bound_ms(3 * flops, nbytes, (peaks[2], peaks[1]))
-    fp32_ms, fp32_by = bound_ms(flops, nbytes, peaks)
+    b_ms, b_by, fp32_ms, fp32_by = read_bound(B, N, P, Ck, Lm, Cv, peaks)
     print(f"K2 time: kernel {ms:.4f} ms, wrapper (normalization + kernel) {wrapper:.4f} ms, "
           f"plain {plain:.4f} ms, sdpa {library:.4f} ms; bound {b_ms:.4f} ms ({b_by}, 3xTF32 "
           f"on the tensor cores), FP32 bound {fp32_ms:.4f} ms ({fp32_by}, CUDA cores)", flush=True)
@@ -591,6 +627,68 @@ def check_path_shapes(log: dict, peaks) -> dict:
             errs["read_memory"] = max(errs["read_memory"], read_case(name, inputs, tau))
     print(f"path shapes checked against float64: em_loop {sorted(log['em_loop'])}, "
           f"read_memory {sorted(log['read_memory'])}", flush=True)
+    return errs
+
+
+def check_new_shapes(peaks) -> dict:
+    """Both kernels against their plain versions in float64 at NEW_SHAPES,
+    widths that the CLIs take and the kernels reach padded (Ck to 16 or 4, L
+    to 8, Lm to 4), in 16-pixel tiles (K1 at Ck 512, or Ck 256 with L 512)
+    or in column blocks (K2 above 2 Lm = 1024). K1 at 1 round at its tight
+    limit, and at NEW_ROUNDS rounds where the float32 plain loop itself is
+    within that limit on the draw (else, as for the training shapes, on a
+    draw of x std CHAOTIC_X_STD; where float32 leaves it there too, the
+    rounds are reported, not held); K2 in the three READ_CASES. Each case is
+    rerun for the bits and timed beside its bound. Returns each kernel's max
+    abs error."""
+    from swem_tpu_torch.ops import em_kernel, read_kernel
+    from swem_tpu_torch.ops.em_kernel import l2norm
+
+    rng = np.random.default_rng(4)
+    tau, n = 0.05, NEW_ROUNDS
+    B, N, P, Cv = 1, 2, NEW_P, 512
+    errs = {"em_loop": 0.0, "read_memory": 0.0}
+    for Ck, L in NEW_SHAPES:
+        name = f"new shape (B, N, P, Ck, L) {(B, N, P, Ck, L)}"
+        inputs = em_inputs(rng, B, N, P, Ck, L, 0.3)
+        errs["em_loop"] = max(errs["em_loop"], em_case(f"{name}, 1 round", inputs, 1, tau,
+                                                       em_tolerance(1)))
+        held = None
+        for x_std in (0.3, CHAOTIC_X_STD):
+            draw = inputs if x_std == 0.3 else em_inputs(rng, B, N, P, Ck, L, x_std)
+            yardstick = plain32_ratio(draw, n, tau, em_tolerance(n))
+            if yardstick <= 1.0:
+                held = x_std
+                errs["em_loop"] = max(errs["em_loop"], em_case(
+                    f"{name}, {n} rounds, x std {x_std}", draw, n, tau, em_tolerance(n)))
+                break
+            got = em_kernel.em_loop(*draw, n_iters=n, tau=tau)
+            ref = em_kernel.em_loop_plain(*(t.double() for t in draw), n_iters=n, tau=tau)
+            kernel = max(worst_ratio(g, r, *em_tolerance(n)) for g, r in zip(got, ref))
+            print(f"K1 {name}, {n} rounds, x std {x_std}: the float32 plain loop itself is at "
+                  f"{yardstick:.3f} of the limit (chaotic at tau), the kernel at {kernel:.3f}",
+                  flush=True)
+        if held is None:
+            print(f"K1 {name}: not held at {n} rounds (float32 itself leaves the limit on both "
+                  f"draws); held at 1 round", flush=True)
+        ms = cuda_ms(lambda: em_kernel.em_loop(*inputs, n_iters=n, tau=tau))
+        b_ms, b_by, fp32_ms, fp32_by = em_bound(B, N, P, Ck, L, n, peaks)
+        print(f"K1 time at the new shape {(B, N, P, Ck, L)}, {n} rounds, "
+              f"{em_kernel.kernel_tile(Ck, L)}-pixel tiles: kernel {ms:.4f} ms; bound {b_ms:.4f} "
+              f"ms ({b_by}, 3xTF32), FP32 bound {fp32_ms:.4f} ms ({fp32_by})", flush=True)
+
+        Lm = 2 * L
+        for valid_case in READ_CASES:
+            draw = read_inputs(rng, B, N, P, Ck, Lm, Cv, valid_case)
+            errs["read_memory"] = max(errs["read_memory"], read_case(
+                f"new shape (B, N, P, Ck, Lm, Cv) {(B, N, P, Ck, Lm, Cv)}, {valid_case}", draw,
+                tau))
+        qn, mkn = l2norm(draw[0], -1), l2norm(draw[1], -2)
+        ms = cuda_ms(lambda: read_kernel.read_normalized(qn, mkn, draw[2], draw[3], tau=tau))
+        b_ms, b_by, fp32_ms, fp32_by = read_bound(B, N, P, Ck, Lm, Cv, peaks)
+        print(f"K2 time at the new shape {(B, N, P, Ck, Lm, Cv)}: kernel {ms:.4f} ms; bound "
+              f"{b_ms:.4f} ms ({b_by}, 3xTF32), FP32 bound {fp32_ms:.4f} ms ({fp32_by})",
+              flush=True)
     return errs
 
 
@@ -862,6 +960,172 @@ def session_path(model, card: str) -> dict:
           f"which holds slot 3 on all {int((third > 0).sum())} pixels of its box; on {card}",
           flush=True)
     return totals
+
+
+def export_path(model, card: str) -> dict:
+    """Phase 7b: the bfloat16 model exported as an injectable artifact and
+    replayed in a fresh process (``--replay``), held against the live
+    runner and session on the same bases; returns the replay's launch
+    counts."""
+    import shutil
+    import subprocess
+
+    import torch
+    from swem_tpu_torch import engine
+    from swem_tpu_torch.bench import box_mask, uint8_frames
+    from swem_tpu_torch.io.export import export_runner
+    from swem_tpu_torch.models import em
+    from swem_tpu_torch.ops.resize import resize
+    from swem_tpu_torch.serve import StreamingSession
+
+    t_phase = time.perf_counter()
+    work = ROOT / "build" / "chip_smoke_export"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    art = work / "art"
+    n = model.cfg.max_objs
+
+    def pre(f):
+        return resize(f.float() / 255.0, IN_SIZE, "bicubic")
+
+    manifest = export_runner(model, str(art), frame_hw=OUT_SIZE, out_size=OUT_SIZE,
+                             chunk=EXPORT_CHUNK, preprocess=pre, injectable=True)
+    sizes = {str(f.relative_to(art)): f.stat().st_size / 2 ** 20
+             for f in sorted(art.rglob("*")) if f.is_file()}
+    print(f"export (bfloat16, injectable, chunk {EXPORT_CHUNK}, programs "
+          f"{['init'] + [f'chunk_{k}' for k in manifest['sizes']] + ['memorize']}): export wall "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in manifest["export_seconds"].items())
+          + "; files " + ", ".join(f"{k} {v:.2f} MB" for k, v in sizes.items()), flush=True)
+    weights_mb = sizes["weights.pt"]
+    if any(v >= weights_mb / 10 for k, v in sizes.items() if k.startswith("programs")):
+        fail("export: a program file holds a tenth of the weights' bytes or more")
+
+    # slot 2 absent from frame 0 and injected at EXPORT_INJECT_AT
+    frames = uint8_frames((T_EXPORT, 1) + OUT_SIZE + (3,), 3)
+    mask = box_mask(OUT_SIZE, n)
+    first = mask.copy()
+    first[..., 0] += first[..., 2]
+    first[..., 2] = 0.0
+    idx_map = (mask[..., 2] > 0).astype(np.uint8) * 2
+    active = np.asarray([[True, False]])
+    new = np.asarray([[False, True]])
+    labels = first[0].argmax(-1).astype(np.uint8)
+    np.savez(work / "video.npz", frames=frames, first=first, active=active, idx_map=idx_map,
+             new=new, labels=labels)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--replay", str(work)],
+                          cwd=ROOT, capture_output=True, text=True, timeout=REPLAY_TIMEOUT_S)
+    if proc.returncode != 0:
+        print(proc.stdout[-4000:], proc.stderr[-6000:], file=sys.stderr, flush=True)
+        fail(f"export: the replay process exited with {proc.returncode}")
+    rep = json.loads(proc.stdout.strip().splitlines()[-1])
+    print(f"export: fresh replay process ({time.perf_counter() - t0:.1f} s wall): "
+          f"{json.dumps(rep)}", flush=True)
+    got = np.load(work / "replay.npz")
+
+    bases = em.Bases(*torch.load(art / "bases.pt"))
+    injections = {EXPORT_INJECT_AT: (idx_map, new)}
+    live = engine.ChunkedVideoRunner(model, OUT_SIZE, chunk=EXPORT_CHUNK, preprocess=pre,
+                                     injectable=True)
+    live.warmup(OUT_SIZE, 1, n, np.uint8)
+
+    def run():
+        return live(None, frames, first, active, injections, bases=bases)
+
+    want, launches = counted(run, T_EXPORT - 1, "live injectable runner (chunk 4)")
+    if rep["launches"] != launches:
+        fail(f"export: the replay launched {rep['launches']}, the live runner {launches}")
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() / 2 ** 20
+    torch.cuda.reset_peak_memory_stats()
+    wall = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        run()
+        wall.append(time.perf_counter() - t0)
+    live_peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    same = float((got["preds"] == want).mean())
+    box = idx_map[0] > 0
+    if not (got["preds"][EXPORT_INJECT_AT - 1, 0][box] == 2).all():
+        fail("export: the injected slot 2 does not hold its box in the replay")
+
+    sess = StreamingSession(model.cfg, model.state_dict(), raw_hw=OUT_SIZE, in_size=IN_SIZE,
+                            out_size=OUT_SIZE, n_slots=n)
+    sess.start(frames[0, 0], labels, bases=bases)
+    live_steps = [sess.add_objects(frames[t, 0], idx_map[0], [2]) if t == EXPORT_INJECT_AT
+                  else sess.push(frames[t, 0]) for t in range(1, N_EXPORT_PUSH + 1)]
+    same_sess = float((got["session"] == np.stack(live_steps)).mean())
+    fps_live = T_EXPORT / float(np.median(wall))
+    print(f"export (bfloat16): replay index pixels equal to the live ChunkedVideoRunner's "
+          f"{same:.6f} (gate 0.999), the replayed session's to the live StreamingSession's "
+          f"{same_sess:.6f} over {N_EXPORT_PUSH} steps (one add_objects); launches replay "
+          f"{rep['launches']} = live {launches}; second replay bit-identical "
+          f"{rep['rerun_identical']}; T={T_EXPORT} frames/s (median of 3, with uploads and the "
+          f"fetch) replay {rep['fps']:.2f}, live {fps_live:.2f}; peak device memory over the "
+          f"calls replay {rep['peak_mb']:.1f} MB ({rep['peak_mb'] - rep['held_mb']:.1f} above "
+          f"what its process held before them), live {live_peak:.1f} MB "
+          f"({live_peak - held:.1f} above; this process holds other phases' models too); "
+          f"replay process: programs loaded "
+          f"and warmed in {rep['load_s']:.1f} s; phase wall {time.perf_counter() - t_phase:.1f} s; "
+          f"on {card}", flush=True)
+    if same < 0.999 or same_sess < 0.999:
+        fail(f"export: the replay agrees with the live paths on only {same:.6f} (runner) and "
+             f"{same_sess:.6f} (session) of pixels")
+    if not rep["rerun_identical"]:
+        fail("export: two replays of the same video gave different bits")
+    return rep["launches"]
+
+
+def replay_main(argv) -> int:
+    """Phase 7b's fresh process (``--replay <dir>``): loads ``<dir>/art`` with
+    torch and the port's ops alone, replays ``<dir>/video.npz`` (counted,
+    again for the bits, then three timed calls) and the session steps,
+    writes ``<dir>/replay.npz`` and prints one JSON line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke replay: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT))
+    from swem_tpu_torch.io.export import ExportedRunner, ExportedSession
+    from swem_tpu_torch.ops import em_kernel, read_kernel
+
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "swem_tpu")
+                    or m in ("swem_tpu_torch.models", "swem_tpu_torch.engine"))
+    if loaded:
+        print(f"chip_smoke replay: the loader imported {loaded}", file=sys.stderr)
+        return 1
+    work = Path(argv[0])
+    v = np.load(work / "video.npz")
+    frames, first, active, labels = v["frames"], v["first"], v["active"], v["labels"]
+    injections = {EXPORT_INJECT_AT: (v["idx_map"], v["new"])}
+    t0 = time.perf_counter()
+    runner = ExportedRunner(str(work / "art"))
+    runner.warmup()
+    load_s = time.perf_counter() - t0
+    em_kernel.launches = read_kernel.launches = 0
+    preds = runner(frames, first, active, injections)
+    torch.cuda.synchronize()
+    launches = {"em_loop": em_kernel.launches, "read_memory": read_kernel.launches}
+    again = runner(frames, first, active, injections)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() / 2 ** 20
+    torch.cuda.reset_peak_memory_stats()
+    wall = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        runner(frames, first, active, injections)
+        wall.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    sess = ExportedSession(str(work / "art"))
+    sess.start(frames[0, 0], labels)
+    steps = [sess.add_objects(frames[t, 0], v["idx_map"][0], [2]) if t == EXPORT_INJECT_AT
+             else sess.push(frames[t, 0]) for t in range(1, N_EXPORT_PUSH + 1)]
+    np.savez(work / "replay.npz", preds=preds, session=np.stack(steps))
+    print(json.dumps({"launches": launches, "rerun_identical": bool(np.array_equal(preds, again)),
+                      "fps": T_EXPORT / float(np.median(wall)), "peak_mb": peak, "held_mb": held,
+                      "load_s": load_s, "frames_seen": sess.frames_seen}), flush=True)
+    return 0
 
 
 def write_box_video(jdir: Path, adir: Path, hw, T: int, n_boxes: int, rng) -> None:
@@ -2087,6 +2351,7 @@ def main() -> int:
         launches, launches_f32, bf16 = main_path(card)
         launches_runner = runner_path(bf16, card)
         launches_session = session_path(bf16, card)
+        launches_export = export_path(bf16, card)
         launches_eval, eval_refs = eval_path(bf16, card)
         del bf16
         train = train_path(card)
@@ -2095,12 +2360,14 @@ def main() -> int:
         shapes[k] |= v
     with full_float32():
         path_errs = check_path_shapes(shapes, peaks)
+        new_errs = check_new_shapes(peaks)
     for e in entries:
-        e["max_abs_err"] = max(e["max_abs_err"], path_errs[e["name"]])
+        e["max_abs_err"] = max(e["max_abs_err"], path_errs[e["name"]], new_errs[e["name"]])
         e["launches"] = launches[e["name"]]
         e["launches_f32"] = launches_f32[e["name"]]
         e["launches_runner"] = launches_runner[e["name"]]
         e["launches_session"] = launches_session[e["name"]]
+        e["launches_export"] = launches_export[e["name"]]
         e["launches_eval"] = launches_eval[e["name"]]
         e["launches_train"] = train["launches"][e["name"]]
         e["launches_train_f32"] = train["launches_f32"][e["name"]]
@@ -2117,4 +2384,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(rank_main(sys.argv[2:]) if sys.argv[1:2] == ["--rank"] else main())
+    if sys.argv[1:2] == ["--rank"]:
+        sys.exit(rank_main(sys.argv[2:]))
+    sys.exit(replay_main(sys.argv[2:]) if sys.argv[1:2] == ["--replay"] else main())

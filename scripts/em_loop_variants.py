@@ -36,7 +36,7 @@ SLOTS = ("prep", "x staging", "affinity", "W and E", "tile partials", "partial l
 
 def build_all(sources, cycles: bool) -> dict:
     """{name: ctypes library}, built in parallel; exits if a build fails."""
-    from swem_tpu_torch.ops import build
+    from swem_tpu_torch.ops import build, em_kernel
 
     out = ROOT / "build" / "em_loop_variants"
     out.mkdir(parents=True, exist_ok=True)
@@ -57,13 +57,7 @@ def build_all(sources, cycles: bool) -> dict:
                 print(f"{name}: {line.strip()}", flush=True)
         if proc.returncode:
             raise SystemExit(f"{name}: build failed")
-        lib = ctypes.CDLL(str(path))
-        lib.swem_em_loop.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [
-            ctypes.c_float, ctypes.c_void_p]
-        lib.swem_em_loop.restype = ctypes.c_int
-        lib.swem_em_loop_error.argtypes = [ctypes.c_int]
-        lib.swem_em_loop_error.restype = ctypes.c_char_p
-        libs[name] = lib
+        libs[name] = em_kernel.bind(ctypes.CDLL(str(path)))
     return libs
 
 

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import dataclasses
 import threading
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from dataclasses import dataclass, field
 from typing import Iterator, Optional, Sequence, Tuple
 
@@ -229,6 +229,14 @@ def full_float32() -> Iterator[None]:
         yield
     finally:
         _FLOAT32_SCOPE.exit()
+
+
+def no_grad():
+    """``torch.no_grad()`` where gradients are on, else nothing: a program
+    traced with gradients off (``io/export.py``) then records no switch of
+    the grad mode, each of which ``torch.export`` turns into a subgraph
+    (they cost it most of its trace time)."""
+    return torch.no_grad() if torch.is_grad_enabled() else nullcontext()
 
 
 def resolve_device(device: Optional[str | torch.device] = None) -> torch.device:

@@ -45,9 +45,17 @@
 // of shared memory each (137,344 at L = 256). Per round the CTAs exchange
 // through L2 about 40 MB: each tile item reads its object's 128 KiB of khat
 // (13.4 MB), and the partials (51 tiles x 2 objects x 128 x 256 floats,
-// 13.4 MB) are written and read back. The kernel takes Ck % 16 == 0 and
-// L % 8 == 0; the wrapper checks those and shared memory (at most 232,448
-// bytes).
+// 13.4 MB) are written and read back.
+//
+// Shapes: the kernel takes Ck % 16 == 0 and L % 8 == 0; the wrapper pads
+// other widths (zero channels; bases with kappa0 = 0, zita0 = 1) and passes
+// the count of real bases Lr, past which the E step's and the W step's
+// softmaxes take nothing (z = 0 there, so the padded columns' partials are 0
+// and their kappa stays 0). A CTA's shared memory grows with the pixel tile
+// times (4 Ck + 2 L): where the 32-pixel tile does not fit the 232,448
+// bytes of a block (Ck 512 at any L, or Ck 256 with L 512), the kernel runs
+// in 16-pixel tiles (one m-tile of the products), which fit up to Ck 512
+// with L 512; the wrapper picks the tile and the launcher checks it.
 //
 // What bounds it: operations, by the least work. The loop is 8 GEMMs of
 // 2 P Ck 4L (1.70 GFLOP at 4 rounds; the W step's product is the next E
@@ -67,9 +75,7 @@ namespace {
 
 constexpr int kThreads = 256;  // 8 warps
 constexpr int kWarps = kThreads / 32;
-constexpr int kTile = 32;      // pixels per tile item: two 16-row m-tiles
 constexpr int kNB = 4;         // 8-column n-tiles a warp holds at once
-constexpr int kRows = kTile / kWarps;  // pixel rows per warp in the softmax
 constexpr int kCols = 4;       // kappa columns per column item
 constexpr int kBatch = 32;     // partial loads in flight per thread in the column phase
 constexpr int kStages = 2;     // k-step pairs of khat in flight per warp in the affinity
@@ -78,8 +84,19 @@ constexpr int kMaxSmem = 232448;  // an H100 block's dynamic shared memory
 __host__ __device__ constexpr int round_up(int x, int m) { return (x + m - 1) / m * m; }
 __host__ __device__ constexpr int imax(int a, int b) { return a > b ? a : b; }
 
+// The pixel tile of a tile item: 32 pixels (two 16-row m-tiles) or 16 (one).
+template <int TILE>
+struct Tile {
+  static constexpr int kMT = TILE / 16;            // 16-row m-tiles of the affinity
+  static constexpr int kK8 = TILE / 8;             // 8-pixel k-steps of the M-step product
+  static constexpr int kRows = TILE / kWarps;      // pixel rows per warp in the softmax
+  static constexpr int kGroups = kThreads / TILE;  // channel groups when staging x
+};
+
 // Shared memory, in 32-bit words. Pitches make every fragment load
-// conflict-free: pA and pT are 4 mod 32 (A operands), pS 8 mod 32 (z as B).
+// conflict-free: pA is 4 mod 32, pT 4 mod 32 (tile 32) or 20 (tile 16) (A
+// operands), pS 8 mod 32 (z as B).
+template <int kTile>
 struct Smem {
   int C, W2;
   __host__ __device__ int pA() const { return round_up(C, 32) + 4; }  // x planes, pixel rows
@@ -108,7 +125,7 @@ struct Params {
   float* part;   // (B, N, tiles, 2L, C): x^T z per pixel tile, by column
   float* zpart;  // (B, N, tiles, 2L)
   unsigned int* bar;  // grid barrier counter, 0 before the first launch
-  int B, N, P, C, L, n_iters;
+  int B, N, P, C, L, Lr, n_iters;  // L padded to a multiple of 8, of which Lr are real
   float tau;
 };
 
@@ -169,20 +186,24 @@ __device__ __forceinline__ SplitTf32 plane_pair(const uint32_t* big, const uint3
 }
 
 // Stage pixel tile `tile` of batch row b: x split into TF32 planes in both
-// layouts (zero past P), and 1 / (|x| + 1e-6) per pixel. Lane r takes pixel
-// row r, so the channel-row stores are conflict-free; uses S's region.
-__device__ void stage_x(const Params& p, float* smem, const Smem& sm, int b, int tile) {
+// layouts (zero past P), and 1 / (|x| + 1e-6) per pixel. Thread i takes
+// pixel row i % kTile and every kGroups-th 4-channel group from i / kTile
+// (at tile 32: lane r row r, warp w the groups from w), so the channel-row
+// stores are conflict-free; uses S's region.
+template <int kTile>
+__device__ void stage_x(const Params& p, float* smem, const Smem<kTile>& sm, int b, int tile) {
+  constexpr int kGroups = Tile<kTile>::kGroups, pT = Smem<kTile>::pT;
   uint32_t* xab = reinterpret_cast<uint32_t*>(smem + sm.xa());
   uint32_t* xas = xab + kTile * sm.pA();
   uint32_t* xtb = reinterpret_cast<uint32_t*>(smem + sm.xt());
-  uint32_t* xts = xtb + p.C * Smem::pT;
-  float* red = smem + sm.s();  // kWarps x kTile partial sums of squares
-  const int C = p.C, pA = sm.pA(), warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int px = tile * kTile + lane;
+  uint32_t* xts = xtb + p.C * pT;
+  float* red = smem + sm.s();  // kGroups x kTile partial sums of squares
+  const int C = p.C, pA = sm.pA(), row = threadIdx.x % kTile, grp = threadIdx.x / kTile;
+  const int px = tile * kTile + row;
   const float4* xr = reinterpret_cast<const float4*>(p.x + ((size_t)b * p.P + px) * C);
   float ss = 0.f;
 #pragma unroll 4
-  for (int c4 = warp; c4 < C / 4; c4 += kWarps) {
+  for (int c4 = grp; c4 < C / 4; c4 += kGroups) {
     const float4 v = px < p.P ? __ldg(xr + c4) : make_float4(0.f, 0.f, 0.f, 0.f);
     const float f[4] = {v.x, v.y, v.z, v.w};
     uint32_t big[4], small[4];
@@ -192,25 +213,28 @@ __device__ void stage_x(const Params& p, float* smem, const Smem& sm, int b, int
       const SplitTf32 h = split_tf32(f[q]);
       big[q] = h.big;
       small[q] = h.small;
-      xtb[(4 * c4 + q) * Smem::pT + lane] = h.big;
-      xts[(4 * c4 + q) * Smem::pT + lane] = h.small;
+      xtb[(4 * c4 + q) * pT + row] = h.big;
+      xts[(4 * c4 + q) * pT + row] = h.small;
     }
-    *reinterpret_cast<uint4*>(xab + lane * pA + 4 * c4) = make_uint4(big[0], big[1], big[2], big[3]);
-    *reinterpret_cast<uint4*>(xas + lane * pA + 4 * c4) =
+    *reinterpret_cast<uint4*>(xab + row * pA + 4 * c4) = make_uint4(big[0], big[1], big[2], big[3]);
+    *reinterpret_cast<uint4*>(xas + row * pA + 4 * c4) =
         make_uint4(small[0], small[1], small[2], small[3]);
   }
-  red[warp * kTile + lane] = ss;
+  red[grp * kTile + row] = ss;
   __syncthreads();
   if (threadIdx.x < kTile) {
     float t = 0.f;
-    for (int w = 0; w < kWarps; ++w) t += red[w * kTile + threadIdx.x];
+    for (int w = 0; w < kGroups; ++w) t += red[w * kTile + threadIdx.x];
     smem[sm.xinv() + threadIdx.x] = 1.f / (sqrtf(t) + 1e-6f);
   }
 }
 
 // Tile item: affinity, W and E steps, and the tile's M-step partials.
-__device__ void tile_item(const Params& p, float* smem, const Smem& sm, int item, int it,
+template <int kTile>
+__device__ void tile_item(const Params& p, float* smem, const Smem<kTile>& sm, int item, int it,
                           int& staged) {
+  using Tl = Tile<kTile>;
+  constexpr int kRows = Tl::kRows, kMT = Tl::kMT, kK8 = Tl::kK8, pT = Smem<kTile>::pT;
   const int N = p.N, C = p.C, W2 = 2 * p.L, NT = W2 / 8, MT = C / 16, KP = C / 16;
   const int n_tiles = (p.P + kTile - 1) / kTile;
   const int n = item % N, bt = item / N, tile = bt % n_tiles, b = bt / n_tiles;
@@ -221,7 +245,7 @@ __device__ void tile_item(const Params& p, float* smem, const Smem& sm, int item
   const uint32_t* xab = reinterpret_cast<const uint32_t*>(smem + sm.xa());
   const uint32_t* xas = xab + kTile * pA;
   const uint32_t* xtb = reinterpret_cast<const uint32_t*>(smem + sm.xt());
-  const uint32_t* xts = xtb + C * Smem::pT;
+  const uint32_t* xts = xtb + C * pT;
   float* S = smem + sm.s();
   const float* xinv = smem + sm.xinv();
 
@@ -243,7 +267,7 @@ __device__ void tile_item(const Params& p, float* smem, const Smem& sm, int item
   // ---- affinity S (32 x 2L) = x_tile . khat; warp holds n-tiles base + warp + 8 nb
   const float4* kh = reinterpret_cast<const float4*>(p.khat) + (size_t)bn * KP * NT * 32 + lane;
   for (int base = 0; base < NT; base += kWarps * kNB) {
-    float acc[2][kNB][4] = {};
+    float acc[kMT][kNB][4] = {};
     // a ring of kStages k-step pairs of B fragments, loaded from L2 ahead of use
     float4 bq[kStages][kNB];
     auto load_b = [&](float4 (&dst)[kNB], int kp) {
@@ -264,9 +288,9 @@ __device__ void tile_item(const Params& p, float* smem, const Smem& sm, int item
 #pragma unroll
         for (int q = 0; q < 2; ++q) {
           const int k0 = 16 * kp + 8 * q;
-          SplitTf32 a[2][4];
+          SplitTf32 a[kMT][4];
 #pragma unroll
-          for (int mt = 0; mt < 2; ++mt) {
+          for (int mt = 0; mt < kMT; ++mt) {
             const int i = (16 * mt + g) * pA + k0 + t;
             a[mt][0] = plane_pair(xab, xas, i);
             a[mt][1] = plane_pair(xab, xas, i + 8 * pA);
@@ -278,8 +302,8 @@ __device__ void tile_item(const Params& p, float* smem, const Smem& sm, int item
             if (base + warp + kWarps * nb >= NT) continue;
             const float4 v = bq[st][nb];
             const SplitTf32 bf[2] = {split_tf32(q ? v.z : v.x), split_tf32(q ? v.w : v.y)};
-            mma_3xtf32_add(acc[0][nb], a[0], bf);
-            mma_3xtf32_add(acc[1][nb], a[1], bf);
+#pragma unroll
+            for (int mt = 0; mt < kMT; ++mt) mma_3xtf32_add(acc[mt][nb], a[mt], bf);
           }
         }
         load_b(bq[st], kp + kStages);
@@ -290,7 +314,7 @@ __device__ void tile_item(const Params& p, float* smem, const Smem& sm, int item
       const int nt = base + warp + kWarps * nb;
       if (nt >= NT) continue;
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
+      for (int mt = 0; mt < kMT; ++mt) {
         float* s0 = S + (16 * mt + g) * pS + 8 * nt + 2 * t;
         *reinterpret_cast<float2*>(s0) = make_float2(acc[mt][nb][0], acc[mt][nb][1]);
         *reinterpret_cast<float2*>(s0 + 8 * pS) = make_float2(acc[mt][nb][2], acc[mt][nb][3]);
@@ -303,9 +327,11 @@ __device__ void tile_item(const Params& p, float* smem, const Smem& sm, int item
   // ---- W and E steps: warp w takes rows w + 8 i, all kRows at once, so their
   // reductions overlap. z overwrites S; rows past P have weight 0, so z = 0.
   // Division by tau is a multiplication by 1 / tau (within an ulp of it), and
-  // max_l(S) / tau is max_l(S / tau), as rounding keeps the order.
+  // max_l(S) / tau is max_l(S / tau), as rounding keeps the order. Only the
+  // Lr real bases of each branch enter the maxima and the sums; the padded
+  // ones get z = 0.
   const float inv_tau = 1.f / p.tau;
-  const int Lb = p.L;
+  const int Lb = p.L, Lr = p.Lr;
   float* Srow[kRows];
   float mx[kRows][2];  // max over each branch's L raw affinities
 #pragma unroll
@@ -313,7 +339,7 @@ __device__ void tile_item(const Params& p, float* smem, const Smem& sm, int item
     Srow[i] = S + (warp + kWarps * i) * pS;
     mx[i][0] = mx[i][1] = -INFINITY;
   }
-  for (int l = lane; l < Lb; l += 32)
+  for (int l = lane; l < Lr; l += 32)
 #pragma unroll
     for (int i = 0; i < kRows; ++i)
 #pragma unroll
@@ -335,7 +361,7 @@ __device__ void tile_item(const Params& p, float* smem, const Smem& sm, int item
       mx[i][s] *= inv_tau;
     }
   }
-  for (int l = lane; l < Lb; l += 32)
+  for (int l = lane; l < Lr; l += 32)
 #pragma unroll
     for (int i = 0; i < kRows; ++i)
 #pragma unroll
@@ -363,7 +389,7 @@ __device__ void tile_item(const Params& p, float* smem, const Smem& sm, int item
       const int px = p0 + warp + kWarps * i;
 #pragma unroll
       for (int s = 0; s < 2; ++s) {
-        const float v = Srow[i][s * Lb + l] * sum[i][s];
+        const float v = l < Lr ? Srow[i][s * Lb + l] * sum[i][s] : 0.f;
         Srow[i][s * Lb + l] = v;
         if (last && px < p.P) p.z[(((size_t)bn * 2 + s) * p.P + px) * Lb + l] = v;
       }
@@ -380,9 +406,9 @@ __device__ void tile_item(const Params& p, float* smem, const Smem& sm, int item
   }
   float* part = p.part + (slot * W2 + 2 * t) * C + g;  // part[slot][j][c]
   for (int base = 0; base < NT; base += kWarps * kNB) {
-    SplitTf32 bz[4][kNB][2];  // z as B: k = pixel 8 k + t (+4), n = column
+    SplitTf32 bz[kK8][kNB][2];  // z as B: k = pixel 8 k + t (+4), n = column
 #pragma unroll
-    for (int k = 0; k < 4; ++k)
+    for (int k = 0; k < kK8; ++k)
 #pragma unroll
       for (int nb = 0; nb < kNB; ++nb) {
         const int col = 8 * imax(0, min(base + warp + kWarps * nb, NT - 1)) + g;
@@ -390,14 +416,14 @@ __device__ void tile_item(const Params& p, float* smem, const Smem& sm, int item
         bz[k][nb][1] = split_tf32(S[(8 * k + t + 4) * pS + col]);
       }
     for (int mt = 0; mt < MT; ++mt) {
-      SplitTf32 a[4][4];  // x^T as A: rows = channels 16 mt + g (+8), k = pixels
+      SplitTf32 a[kK8][4];  // x^T as A: rows = channels 16 mt + g (+8), k = pixels
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const int i = (16 * mt + g) * Smem::pT + 8 * k + t;
+      for (int k = 0; k < kK8; ++k) {
+        const int i = (16 * mt + g) * pT + 8 * k + t;
         a[k][0] = plane_pair(xtb, xts, i);
-        a[k][1] = plane_pair(xtb, xts, i + 8 * Smem::pT);
+        a[k][1] = plane_pair(xtb, xts, i + 8 * pT);
         a[k][2] = plane_pair(xtb, xts, i + 4);
-        a[k][3] = plane_pair(xtb, xts, i + 8 * Smem::pT + 4);
+        a[k][3] = plane_pair(xtb, xts, i + 8 * pT + 4);
       }
 #pragma unroll
       for (int nb = 0; nb < kNB; ++nb) {
@@ -405,7 +431,7 @@ __device__ void tile_item(const Params& p, float* smem, const Smem& sm, int item
         if (nt >= NT) continue;
         float d[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-        for (int k = 0; k < 4; ++k) mma_3xtf32_add(d, a[k], bz[k][nb]);
+        for (int k = 0; k < kK8; ++k) mma_3xtf32_add(d, a[k], bz[k][nb]);
         float* pc = part + (size_t)8 * nt * C + 16 * mt;
         pc[0] = d[0];
         pc[C] = d[1];
@@ -420,7 +446,9 @@ __device__ void tile_item(const Params& p, float* smem, const Smem& sm, int item
 // Column item: kCols columns (one branch) of one object. mode 0: khat from
 // kappa0; 1: add the partials, khat for the next round; 2: add the
 // partials, write kappa and zita.
-__device__ void column_item(const Params& p, float* smem, const Smem& sm, int item, int mode) {
+template <int kTile>
+__device__ void column_item(const Params& p, float* smem, const Smem<kTile>& sm, int item,
+                            int mode) {
   const int C = p.C, W2 = 2 * p.L, NT = W2 / 8, KP = C / 16;
   const int n_tiles = (p.P + kTile - 1) / kTile;
   const int bn = item / (W2 / kCols), j0 = kCols * (item % (W2 / kCols)), s = j0 / p.L;
@@ -508,9 +536,10 @@ __device__ void column_item(const Params& p, float* smem, const Smem& sm, int it
   CHECKPOINT(8);
 }
 
+template <int kTile>
 __global__ void __launch_bounds__(kThreads, 1) em_loop_kernel(const Params p) {
   extern __shared__ __align__(16) float smem[];
-  const Smem sm{p.C, 2 * p.L};
+  const Smem<kTile> sm{p.C, 2 * p.L};
   const int n_tiles = (p.P + kTile - 1) / kTile;
   const int tile_items = p.B * p.N * n_tiles, column_items = p.B * p.N * (2 * p.L / kCols);
 #ifdef SWEM_EM_CYCLES
@@ -543,30 +572,60 @@ __global__ void __launch_bounds__(kThreads, 1) em_loop_kernel(const Params p) {
 #endif
 }
 
-// CUDA keeps a kernel's attributes per device: each device sets the
-// shared-memory limit once (all of a block's shared memory but the static
-// part, which only the cycle checkpoints use), and every call checks the result
+// CUDA keeps a kernel's attributes per device: each device sets each
+// instantiation's shared-memory limit once (all of a block's shared memory
+// but the static part, which only the cycle checkpoints use), and every call
+// checks the result
 constexpr int kMaxDevices = 64;
 struct DeviceSetup {
   std::once_flag once;
   cudaError_t err = cudaSuccess;
   int static_smem = 0;
 };
-DeviceSetup device_setup[kMaxDevices];
 
+template <int kTile>
 cudaError_t setup_device(int dev, int* static_smem) {
+  static DeviceSetup device_setup[kMaxDevices];
   if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
   DeviceSetup& s = device_setup[dev];
   std::call_once(s.once, [&s] {
     cudaFuncAttributes fa;
-    s.err = cudaFuncGetAttributes(&fa, em_loop_kernel);
+    s.err = cudaFuncGetAttributes(&fa, em_loop_kernel<kTile>);
     if (s.err != cudaSuccess) return;
     s.static_smem = (int)fa.sharedSizeBytes;
-    s.err = cudaFuncSetAttribute(em_loop_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    s.err = cudaFuncSetAttribute(em_loop_kernel<kTile>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  kMaxSmem - s.static_smem);
   });
   *static_smem = s.static_smem;
   return s.err;
+}
+
+template <int kTile>
+cudaError_t launch(const Params& params, cudaStream_t stream) {
+  int dev, static_smem, coop, n_sm, per_sm;
+  cudaError_t err;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = setup_device<kTile>(dev, &static_smem)) != cudaSuccess) return err;
+  const size_t smem = Smem<kTile>{params.C, 2 * params.L}.bytes();
+  if (smem + static_smem > (size_t)kMaxSmem) return cudaErrorInvalidValue;
+  if ((err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev)) != cudaSuccess)
+    return err;
+  if (!coop) return cudaErrorNotSupported;
+  if ((err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, em_loop_kernel<kTile>,
+                                                           kThreads, smem)) != cudaSuccess)
+    return err;
+  if (per_sm < 1) return cudaErrorInvalidValue;
+  const int BN = params.B * params.N;
+  const int items = imax(BN * ((params.P + kTile - 1) / kTile), BN * (2 * params.L / kCols));
+  const int grid = items < per_sm * n_sm ? items : per_sm * n_sm;
+  Params p = params;
+  void* args[] = {&p};
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(em_loop_kernel<kTile>), dim3(grid),
+                                    dim3(kThreads), args, smem, stream);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 }  // namespace
@@ -582,42 +641,28 @@ extern "C" const char* swem_em_loop_error(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Runs the whole loop on `stream`, on the current device, as one cooperative launch. Shapes: x (B, P,
-// C); masks (B, N, 2, P); kappa0 and kappa (B, N, 2, C, L); zita0 and zita
-// (B, N, 2, L); z (B, N, 2, P, L); scratch khat (B N C 2L floats), part
-// (B N ceil(P / 32) C 2L), zpart (B N ceil(P / 32) 2L); bar one word, 0 before
-// the first call and left so by every call. Returns the first CUDA error, or
-// 0; cudaErrorNotSupported if the device cannot launch cooperatively,
-// cudaErrorInvalidValue for a shape the kernel does not take.
+// Runs the whole loop on `stream`, on the current device, as one cooperative
+// launch in `tile`-pixel tiles (32 or 16). Shapes: x (B, P, C); masks (B, N,
+// 2, P); kappa0 and kappa (B, N, 2, C, L); zita0 and zita (B, N, 2, L); z (B,
+// N, 2, P, L); scratch khat (B N C 2L floats), part (B N ceil(P / tile) C 2L),
+// zpart (B N ceil(P / tile) 2L); bar one word, 0 before the first call and
+// left so by every call. The first Lr of the L bases are real (the rest
+// padding). Returns the first CUDA error, or 0; cudaErrorNotSupported if the
+// device cannot launch cooperatively, cudaErrorInvalidValue for a shape the
+// kernel does not take.
 extern "C" int swem_em_loop(const float* x, const float* masks, const float* kappa0,
                             const float* zita0, float* z, float* kappa, float* zita, float* khat,
                             float* part, float* zpart, unsigned int* bar, int B, int N, int P,
-                            int C, int L, int n_iters, float tau, void* stream_ptr) {
+                            int C, int L, int Lr, int tile, int n_iters, float tau,
+                            void* stream_ptr) {
   using namespace swem;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  int dev, static_smem, coop, n_sm, per_sm;
-  cudaError_t err;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
-  if ((err = setup_device(dev, &static_smem)) != cudaSuccess) return err;
-  if (B < 1 || N < 1 || P < 1 || C < 16 || C % 16 || L < 8 || L % 8 || n_iters < 1)
+  if (B < 1 || N < 1 || P < 1 || C < 16 || C % 16 || L < 8 || L % 8 || Lr < 1 || Lr > L ||
+      n_iters < 1)
     return cudaErrorInvalidValue;
-  const size_t smem = Smem{C, 2 * L}.bytes();
-  if (smem + static_smem > (size_t)kMaxSmem) return cudaErrorInvalidValue;
-  if ((err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev)) != cudaSuccess)
-    return err;
-  if (!coop) return cudaErrorNotSupported;
-  if ((err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, em_loop_kernel, kThreads,
-                                                           smem)) != cudaSuccess)
-    return err;
-  if (per_sm < 1) return cudaErrorInvalidValue;
-  const int items = imax(B * N * ((P + kTile - 1) / kTile), B * N * (2 * L / kCols));
-  const int grid = items < per_sm * n_sm ? items : per_sm * n_sm;
-  Params params{x, masks, kappa0, zita0, z, kappa, zita, khat, part, zpart, bar,
-                B, N, P, C, L, n_iters, tau};
-  void* args[] = {&params};
-  err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(em_loop_kernel), dim3(grid),
-                                    dim3(kThreads), args, smem, stream);
-  return err != cudaSuccess ? err : cudaGetLastError();
+  const Params params{x, masks, kappa0, zita0, z, kappa, zita, khat, part, zpart, bar,
+                      B, N, P, C, L, Lr, n_iters, tau};
+  if (tile == 32) return launch<32>(params, stream);
+  if (tile == 16) return launch<16>(params, stream);
+  return cudaErrorInvalidValue;
 }

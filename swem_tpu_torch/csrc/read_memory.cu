@@ -17,7 +17,13 @@
 // no work; a grid that fills all 132 (smaller pixel tiles, or the two Cv
 // slices as a 2-CTA cluster) is a next step. Two instantiations: up to 512
 // bases (2 Lm), padded to 512, in 64-pixel tiles (smaller shapes pad up to
-// it), and up to 1024, padded to 1024, in 32-pixel tiles. Both products run
+// it), where the query tile fits (Ck <= 352); and any other shape in 32-pixel
+// tiles and blocks of 1024 columns, which read more than 1024 bases in two
+// passes over the blocks: the affinity of every block for the joint row
+// maximum, then each block's affinity again, its exponentials (relative to
+// the joint maximum, as exp_aff must be) and its part of the value read,
+// added in block order. The query tile is staged again for every block (the
+// mv chunks reuse its space), so that path takes Ck <= 752. Both products run
 // through mma.sync m16n8k8 in 3xTF32 (mma_tf32.cuh), which keeps FP32's
 // accuracy at three TF32 products each; every long sum is added on the CUDA
 // cores, since the tensor cores' own accumulator does not round to nearest.
@@ -33,9 +39,17 @@
 // 3. Value read: 32-base chunks of this slice's 256 mv columns, double-
 //    buffered the same way (the first loads during the softmax); each warp
 //    owns a 32-row block of the output, 32 columns wide (16 at 1024 bases).
+// Narrow keys (Ck <= 32) take the affinity's products and sums in FP64 on the
+// CUDA cores instead, in instantiations of their own (about 2 k FMAs per
+// thread per chunk, rounded once to FP32): each 3xTF32 product is good to
+// about 2^-21, and with few channels a few products make up each affinity,
+// whose error exp(a / tau) magnifies 20 times. At Ck 8 that took the worst
+// output to 2.0 times the float64 check's limit (rtol 1e-4, atol 1e-6), 1.2
+// with FP64 products; float32 itself reaches 2.4 there (the value read's
+// 3xTF32 products and FP32's own rounding remain).
 // Ragged edges (P, Ck, Cv, W2) are zero-filled by cp.async and masked at the
-// stores. The kernel needs Ck % 4 == 0, Lm % 4 == 0, W2 <= 1024 and
-// 16-byte-aligned inputs; the wrapper checks.
+// stores. The kernel needs Ck % 4 == 0, Lm % 4 == 0 and 16-byte-aligned
+// inputs; the wrapper pads Ck and Lm (padded bases invalid) and aligns.
 //
 // What bounds it: operations. The function is 2.12 GFLOP of FP32 products
 // (0.425 affinity + 1.70 value read) on 16.7 MB of inputs and outputs:
@@ -65,8 +79,8 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kCols = 256;     // Cv columns per CTA
 constexpr int kJc = 32;        // bases per staged mv chunk
 constexpr int kVP = kJc + 4;   // pitch of a staged mv chunk: rows v, bases contiguous
-constexpr int kMaxW2 = 1024;
 constexpr int kMaxSmem = 232448;  // an H100 block's dynamic shared memory
+constexpr int kExactC = 32;       // up to this Ck the affinity runs in FP64 on the CUDA cores
 
 __host__ __device__ constexpr int round_up(int x, int m) { return (x + m - 1) / m * m; }
 __host__ __device__ constexpr int imax(int a, int b) { return a > b ? a : b; }
@@ -74,8 +88,10 @@ __host__ __device__ constexpr int imax(int a, int b) { return a > b ? a : b; }
 // The CTA's tiling for W2p = 64 NT padded bases. 64 pixel rows, two warp rows
 // of 32; at W2p = 1024 the affinity block only fits shared memory at 32 rows,
 // and the mk chunks only at 16 rows of Ck. mk and mv are double-buffered.
+// kBlocked: 2 Lm may exceed W2p, in column blocks of W2p.
 template <int NT>
 struct Tiling {
+  static constexpr bool kBlocked = NT > 8;
   static constexpr int W2p = 64 * NT;
   static constexpr int kRows = NT <= 8 ? 64 : 32;     // pixels per CTA
   static constexpr int kWarpsN = kWarps / (kRows / 32);  // warps along the columns
@@ -100,8 +116,10 @@ struct Tiling {
 };
 
 // qk (B, P, C); mk (B, G, C, Lm); mv (B, G, Cv, Lm); valid (B, G, Lm) bytes;
-// out (B, G/2, P, Cv); exp_aff (B, G, Lm, P). W2p = 64 * NT >= 2 * Lm.
-template <int NT>
+// out (B, G/2, P, Cv); exp_aff (B, G, Lm, P). W2p = 64 * NT >= 2 * Lm, or any
+// 2 Lm in blocks of W2p where kBlocked. kNarrow: C <= kExactC, whose affinity
+// runs in FP64 on the CUDA cores.
+template <int NT, bool kNarrow>
 __global__ void __launch_bounds__(kThreads, 1)
 read_kernel(const float* __restrict__ qk, const float* __restrict__ mk,
             const float* __restrict__ mv, const unsigned char* __restrict__ valid,
@@ -126,169 +144,219 @@ read_kernel(const float* __restrict__ qk, const float* __restrict__ mk,
   const float* vb = mv + obj * Cv * Lm;
   const unsigned char* vd = valid + obj * Lm;
 
-  // ---- 1. affinity S = q (kRows x C) . k (C x W2), accumulated in registers;
-  // warp (wm, wn) owns rows 32 wm .. 32 wm + 31, columns wn * 8 kTilesS ..
-  for (int i = threadIdx.x; i < kRows * (Cpad / 4); i += kThreads) {
-    const int r = i / (Cpad / 4), c = 4 * (i % (Cpad / 4)), p = p0 + r;
-    const bool ok = p < P && c < C;
-    cp_async16(U + r * pQ + c, ok ? qb + (size_t)p * C + c : qb, ok);
-  }
-  auto load_k = [&](int chunk) {
+  // ---- 1. affinity of column block cb, S = q (kRows x C) . k (C x W2p), in
+  // registers; warp (wm, wn) owns rows 32 wm .. 32 wm + 31, columns
+  // wn * 8 kTilesS .. of the block, global columns cb W2p + those
+  auto load_k = [&](int cb, int chunk) {
     float* ks = SK + (chunk & 1) * kKc * pK;
     for (int i = threadIdx.x; i < kKc * (T::W2p / 4); i += kThreads) {
-      const int kk = i / (T::W2p / 4), j = 4 * (i % (T::W2p / 4)), c = chunk * kKc + kk;
+      const int kk = i / (T::W2p / 4), j = cb * T::W2p + 4 * (i % (T::W2p / 4));
+      const int c = chunk * kKc + kk;
       const bool ok = c < C && j < W2;
       const int s = j >= Lm;
-      cp_async16(ks + kk * pK + j, ok ? kb + ((size_t)s * C + c) * Lm + (j - s * Lm) : kb, ok);
+      cp_async16(ks + kk * pK + j - cb * T::W2p,
+                 ok ? kb + ((size_t)s * C + c) * Lm + (j - s * Lm) : kb, ok);
     }
   };
-  float acc[2][T::kTilesS][4] = {};
-  const int nk = Cpad / kKc;
-  load_k(0);  // in one group with the query tile
-  cp_async_commit();
-  for (int kc = 0; kc < nk; ++kc) {
-    cp_async_wait<0>();
-    __syncthreads();  // chunk kc is in; every warp is done with the other buffer
-    if (kc + 1 < nk) load_k(kc + 1);
+  const int col0 = wn * 8 * T::kTilesS + 2 * t;  // this thread's first column in the block
+  float acc[2][T::kTilesS][4];
+  uint32_t valid_bits;  // bit 2 nt + e: column col0 + 8 nt + e of the block is a valid base
+  auto affinity = [&](int cb) {
+    __syncthreads();  // every warp is done with U and SK
+    for (int i = threadIdx.x; i < kRows * (Cpad / 4); i += kThreads) {
+      const int r = i / (Cpad / 4), c = 4 * (i % (Cpad / 4)), p = p0 + r;
+      const bool ok = p < P && c < C;
+      cp_async16(U + r * pQ + c, ok ? qb + (size_t)p * C + c : qb, ok);
+    }
+    load_k(cb, 0);  // in one group with the query tile
     cp_async_commit();
-    const float* ks = SK + (kc & 1) * kKc * pK + wn * 8 * T::kTilesS + g;
 #pragma unroll
-    for (int k8 = 0; k8 < kKc; k8 += 8) {
-      SplitTf32 a[2][4];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        const float* qa = U + (32 * wm + 16 * mt + g) * pQ + kc * kKc + k8 + t;
-        a[mt][0] = split_tf32(qa[0]);
-        a[mt][1] = split_tf32(qa[8 * pQ]);
-        a[mt][2] = split_tf32(qa[4]);
-        a[mt][3] = split_tf32(qa[8 * pQ + 4]);
-      }
-#pragma unroll
-      for (int nt = 0; nt < T::kTilesS; ++nt) {
-        const float* kp = ks + (k8 + t) * pK + nt * 8;
-        const SplitTf32 bf[2] = {split_tf32(kp[0]), split_tf32(kp[4 * pK])};
-        mma_3xtf32_add(acc[0][nt], a[0], bf);
-        mma_3xtf32_add(acc[1][nt], a[1], bf);
-      }
-    }
-  }
-  __syncthreads();  // every warp is done with the query tile and the mk chunks
-
-  // the first mv chunk loads (over the dead query tile) during the softmax
-  const int nj = round_up(W2, kJc) / kJc;
-  auto load_v = [&](int chunk) {
-    float* vsm = U + (chunk & 1) * kCols * kVP;
-    for (int i = threadIdx.x; i < kCols * (kJc / 4); i += kThreads) {
-      const int vv = i / (kJc / 4), jj = 4 * (i % (kJc / 4)), j = chunk * kJc + jj, v = v0 + vv;
-      const bool ok = v < Cv && j < W2;
-      const int s = j >= Lm;
-      cp_async16(vsm + vv * kVP + jj, ok ? vb + ((size_t)s * Cv + v) * Lm + (j - s * Lm) : vb, ok);
-    }
-  };
-  load_v(0);
-  cp_async_commit();
-
-  // ---- 2. masked joint softmax over the W2 bases, rows r = 32 wm + 16 mt + 8 h + g;
-  // acc[mt][nt][2 h + e] is (row r, column col0 + 8 nt + e)
-  const int col0 = wn * 8 * T::kTilesS + 2 * t;
-  uint32_t valid_bits = 0;  // bit 2 nt + e: column col0 + 8 nt + e is a valid base
-#pragma unroll
-  for (int nt = 0; nt < T::kTilesS; ++nt)
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int j = col0 + 8 * nt + e;
-      if (j < W2 && vd[j]) valid_bits |= 1u << (2 * nt + e);
-    }
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      float x = -INFINITY;
+    for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
       for (int nt = 0; nt < T::kTilesS; ++nt)
 #pragma unroll
-        for (int e = 0; e < 2; ++e)
-          if (valid_bits >> (2 * nt + e) & 1u) x = fmaxf(x, acc[mt][nt][2 * h + e]);
-      x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-      x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-      if (t == 0) part[wn * kRows + 32 * wm + 16 * mt + 8 * h + g] = x;
+        for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
+    const int nk = Cpad / kKc;
+    for (int kc = 0; kc < nk; ++kc) {
+      cp_async_wait<0>();
+      __syncthreads();  // chunk kc is in; every warp is done with the other buffer
+      if (kc + 1 < nk) load_k(cb, kc + 1);
+      cp_async_commit();
+      if constexpr (kNarrow) {  // narrow keys: FP64 products and sums on the CUDA cores
+        const float* ks = SK + (kc & 1) * kKc * pK + col0;
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float* qa = U + (32 * wm + 16 * mt + 8 * h + g) * pQ + kc * kKc;
+#pragma unroll
+            for (int nt = 0; nt < T::kTilesS; ++nt)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const float* kp = ks + 8 * nt + e;
+                double d = 0.0;
+#pragma unroll 8
+                for (int k = 0; k < kKc; ++k) d = fma((double)qa[k], (double)kp[k * pK], d);
+                acc[mt][nt][2 * h + e] += (float)d;
+              }
+          }
+        continue;
+      }
+      const float* ks = SK + (kc & 1) * kKc * pK + wn * 8 * T::kTilesS + g;
+#pragma unroll
+      for (int k8 = 0; k8 < kKc; k8 += 8) {
+        SplitTf32 a[2][4];
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          const float* qa = U + (32 * wm + 16 * mt + g) * pQ + kc * kKc + k8 + t;
+          a[mt][0] = split_tf32(qa[0]);
+          a[mt][1] = split_tf32(qa[8 * pQ]);
+          a[mt][2] = split_tf32(qa[4]);
+          a[mt][3] = split_tf32(qa[8 * pQ + 4]);
+        }
+#pragma unroll
+        for (int nt = 0; nt < T::kTilesS; ++nt) {
+          const float* kp = ks + (k8 + t) * pK + nt * 8;
+          const SplitTf32 bf[2] = {split_tf32(kp[0]), split_tf32(kp[4 * pK])};
+          mma_3xtf32_add(acc[0][nt], a[0], bf);
+          mma_3xtf32_add(acc[1][nt], a[1], bf);
+        }
+      }
     }
-  __syncthreads();
-  if (threadIdx.x < kRows) {
-    float x = part[threadIdx.x];
-    for (int w = 1; w < T::kWarpsN; ++w) x = fmaxf(x, part[w * kRows + threadIdx.x]);
-    row_max[threadIdx.x] = x;
+    __syncthreads();  // every warp is done with the query tile and the mk chunks
+    valid_bits = 0;
+#pragma unroll
+    for (int nt = 0; nt < T::kTilesS; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int j = cb * T::W2p + col0 + 8 * nt + e;
+        if (j < W2 && vd[j]) valid_bits |= 1u << (2 * nt + e);
+      }
+  };
+
+  // ---- 2a. the row maxima over the valid bases of the block, joint over the
+  // blocks; rows r = 32 wm + 16 mt + 8 h + g; acc[mt][nt][2 h + e] is (row r,
+  // column col0 + 8 nt + e)
+  auto block_max = [&](bool first) {
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float x = -INFINITY;
+#pragma unroll
+        for (int nt = 0; nt < T::kTilesS; ++nt)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            if (valid_bits >> (2 * nt + e) & 1u) x = fmaxf(x, acc[mt][nt][2 * h + e]);
+        x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+        x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+        if (t == 0) part[wn * kRows + 32 * wm + 16 * mt + 8 * h + g] = x;
+      }
+    __syncthreads();
+    if (threadIdx.x < kRows) {
+      float x = part[threadIdx.x];
+      for (int w = 1; w < T::kWarpsN; ++w) x = fmaxf(x, part[w * kRows + threadIdx.x]);
+      row_max[threadIdx.x] = first ? x : fmaxf(row_max[threadIdx.x], x);
+    }
+    __syncthreads();
+  };
+  const int nb = T::kBlocked ? (W2 + T::W2p - 1) / T::W2p : 1;
+  for (int cb = 0; cb < nb; ++cb) {  // at nb = 1, acc keeps block 0's affinity
+    affinity(cb);
+    block_max(cb == 0);
   }
-  __syncthreads();
-  float* S = SK;  // S[r * pS + j]
+
+  float* S = SK;  // S[r * pS + j], j the column in the block
   float* ea = exp_aff + obj * Lm * P;
   // exp((a - max) / tau) as exp2((a - max) * log2(e) / tau): a multiply for
   // the division, within a few ulp of the plain version's exponential
   const float scale = 1.4426950408889634f / tau;
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = 32 * wm + 16 * mt + 8 * h + g, p = p0 + r;
-      const float mx = row_max[r];
-      float sum = 0.f;
-#pragma unroll
-      for (int nt = 0; nt < T::kTilesS; ++nt)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int j = col0 + 8 * nt + e;
-          const bool ok = valid_bits >> (2 * nt + e) & 1u;
-          const float x = ok ? exp2f((acc[mt][nt][2 * h + e] - mx) * scale) : 0.f;
-          S[r * pS + j] = x;
-          sum += x;
-          if (vs == 0 && p < P && j < W2) ea[(size_t)j * P + p] = x;
-        }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      if (t == 0) part[wn * kRows + r] = sum;
-    }
-  __syncthreads();
-  if (threadIdx.x < kRows) {
-    float x = part[threadIdx.x];
-    for (int w = 1; w < T::kWarpsN; ++w) x += part[w * kRows + threadIdx.x];
-    row_sum[threadIdx.x] = x + 1e-30f;
-  }
-
-  // ---- 3. value read: out (kRows x 256) = e (kRows x W2) . mv^T (W2 x 256);
-  // warp (wm, wn) owns rows 32 wm .. 32 wm + 31, columns wn * 8 kTilesO ..
   float o[2][T::kTilesO][4] = {};
-  for (int jc = 0; jc < nj; ++jc) {
-    cp_async_wait<0>();
-    __syncthreads();  // chunk jc is in; every warp is done with the other buffer
-    if (jc + 1 < nj) load_v(jc + 1);
+  for (int cb = 0; cb < nb; ++cb) {
+    if (nb > 1) affinity(cb);
+    const int j0 = cb * T::W2p, nj = round_up(min(W2 - j0, T::W2p), kJc) / kJc;
+    // the block's first mv chunk loads (over the dead query tile) during the softmax
+    auto load_v = [&](int chunk) {
+      float* vsm = U + (chunk & 1) * kCols * kVP;
+      for (int i = threadIdx.x; i < kCols * (kJc / 4); i += kThreads) {
+        const int vv = i / (kJc / 4), jj = 4 * (i % (kJc / 4)), j = j0 + chunk * kJc + jj;
+        const int v = v0 + vv;
+        const bool ok = v < Cv && j < W2;
+        const int s = j >= Lm;
+        cp_async16(vsm + vv * kVP + jj, ok ? vb + ((size_t)s * Cv + v) * Lm + (j - s * Lm) : vb,
+                   ok);
+      }
+    };
+    load_v(0);
     cp_async_commit();
-    const float* vsm = U + (jc & 1) * kCols * kVP + (wn * 8 * T::kTilesO + g) * kVP + t;
-    float pc[2][T::kTilesO][4] = {};  // this chunk's 16-deep sums, in the tensor cores' accumulator
-#pragma unroll
-    for (int k8 = 0; k8 < kJc; k8 += 8) {
-      SplitTf32 a[2][4];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        const float* sa = S + (32 * wm + 16 * mt + g) * pS + jc * kJc + k8 + t;
-        a[mt][0] = split_tf32(sa[0]);
-        a[mt][1] = split_tf32(sa[8 * pS]);
-        a[mt][2] = split_tf32(sa[4]);
-        a[mt][3] = split_tf32(sa[8 * pS + 4]);
-      }
-#pragma unroll
-      for (int nt = 0; nt < T::kTilesO; ++nt) {
-        const float* vp = vsm + 8 * nt * kVP + k8;
-        const SplitTf32 bf[2] = {split_tf32(vp[0]), split_tf32(vp[4])};
-        mma_3xtf32_acc(pc[0][nt], a[0], bf);
-        mma_3xtf32_acc(pc[1][nt], a[1], bf);
-      }
-    }
+
+    // ---- 2b. the block's exponentials against the joint maxima, its row sums
 #pragma unroll
     for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-      for (int nt = 0; nt < T::kTilesO; ++nt)
+      for (int h = 0; h < 2; ++h) {
+        const int r = 32 * wm + 16 * mt + 8 * h + g, p = p0 + r;
+        const float mx = row_max[r];
+        float sum = 0.f;
 #pragma unroll
-        for (int i = 0; i < 4; ++i) o[mt][nt][i] += pc[mt][nt][i];
+        for (int nt = 0; nt < T::kTilesS; ++nt)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int j = col0 + 8 * nt + e;
+            const bool ok = valid_bits >> (2 * nt + e) & 1u;
+            const float x = ok ? exp2f((acc[mt][nt][2 * h + e] - mx) * scale) : 0.f;
+            S[r * pS + j] = x;
+            sum += x;
+            if (vs == 0 && p < P && j0 + j < W2) ea[(size_t)(j0 + j) * P + p] = x;
+          }
+        sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+        sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+        if (t == 0) part[wn * kRows + r] = sum;
+      }
+    __syncthreads();
+    if (threadIdx.x < kRows) {
+      float x = part[threadIdx.x];
+      for (int w = 1; w < T::kWarpsN; ++w) x += part[w * kRows + threadIdx.x];
+      if (cb > 0) x += row_sum[threadIdx.x];
+      row_sum[threadIdx.x] = cb == nb - 1 ? x + 1e-30f : x;
+    }
+
+    // ---- 3. value read: out (kRows x 256) += e (kRows x W2p) . mv^T (W2p x 256)
+    // over the block; warp (wm, wn) owns rows 32 wm .. 32 wm + 31, columns
+    // wn * 8 kTilesO ..
+    for (int jc = 0; jc < nj; ++jc) {
+      cp_async_wait<0>();
+      __syncthreads();  // chunk jc is in; every warp is done with the other buffer
+      if (jc + 1 < nj) load_v(jc + 1);
+      cp_async_commit();
+      const float* vsm = U + (jc & 1) * kCols * kVP + (wn * 8 * T::kTilesO + g) * kVP + t;
+      float pc[2][T::kTilesO][4] = {};  // this chunk's sums, in the tensor cores' accumulator
+#pragma unroll
+      for (int k8 = 0; k8 < kJc; k8 += 8) {
+        SplitTf32 a[2][4];
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          const float* sa = S + (32 * wm + 16 * mt + g) * pS + jc * kJc + k8 + t;
+          a[mt][0] = split_tf32(sa[0]);
+          a[mt][1] = split_tf32(sa[8 * pS]);
+          a[mt][2] = split_tf32(sa[4]);
+          a[mt][3] = split_tf32(sa[8 * pS + 4]);
+        }
+#pragma unroll
+        for (int nt = 0; nt < T::kTilesO; ++nt) {
+          const float* vp = vsm + 8 * nt * kVP + k8;
+          const SplitTf32 bf[2] = {split_tf32(vp[0]), split_tf32(vp[4])};
+          mma_3xtf32_acc(pc[0][nt], a[0], bf);
+          mma_3xtf32_acc(pc[1][nt], a[1], bf);
+        }
+      }
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < T::kTilesO; ++nt)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) o[mt][nt][i] += pc[mt][nt][i];
+    }
   }
   float* ob = out + ((size_t)b * (G / 2) + n) * P * Cv;
 #pragma unroll
@@ -312,32 +380,32 @@ constexpr int kMaxDevices = 64;
 
 // CUDA keeps a kernel's attributes per device: each instantiation sets its
 // shared-memory limit once on each device, and every call checks the result
-template <int NT>
+template <int NT, bool kNarrow>
 cudaError_t setup_device(int dev) {
   static std::once_flag once[kMaxDevices];
   static cudaError_t err[kMaxDevices];
   if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
   std::call_once(once[dev], [dev] {
-    err[dev] = cudaFuncSetAttribute(read_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                    kMaxSmem);
+    err[dev] = cudaFuncSetAttribute(read_kernel<NT, kNarrow>,
+                                    cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
   });
   return err[dev];
 }
 
-template <int NT>
+template <int NT, bool kNarrow>
 cudaError_t launch(const float* qk, const float* mk, const float* mv, const unsigned char* valid,
                    float* out, float* exp_aff, int B, int G, int P, int C, int Cv, int Lm,
                    float tau, cudaStream_t stream) {
   int dev;
   cudaError_t err;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
-  if ((err = setup_device<NT>(dev)) != cudaSuccess) return err;
+  if ((err = setup_device<NT, kNarrow>(dev)) != cudaSuccess) return err;
   const size_t smem = Tiling<NT>::smem_bytes(C);
   if (smem > (size_t)kMaxSmem) return cudaErrorInvalidValue;
   constexpr int kRows = Tiling<NT>::kRows;
   const dim3 grid(((P + kRows - 1) / kRows) * ((Cv + kCols - 1) / kCols), G / 2, B);
-  read_kernel<NT><<<grid, kThreads, smem, stream>>>(qk, mk, mv, valid, out, exp_aff, P, C, Cv,
-                                                    Lm, G, tau);
+  read_kernel<NT, kNarrow><<<grid, kThreads, smem, stream>>>(qk, mk, mv, valid, out, exp_aff,
+                                                             P, C, Cv, Lm, G, tau);
   return cudaGetLastError();
 }
 
@@ -356,8 +424,11 @@ extern "C" int swem_read_memory(const float* qk, const float* mk, const float* m
                                 void* stream_ptr) {
   using namespace swem;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const int W2 = 2 * Lm;
-  if (C % 4 != 0 || Lm % 4 != 0 || W2 > kMaxW2 || Lm <= 0 || C <= 0) return cudaErrorInvalidValue;
-  if (W2 <= 512) return launch<8>(qk, mk, mv, valid, out, exp_aff, B, G, P, C, Cv, Lm, tau, stream);
-  return launch<16>(qk, mk, mv, valid, out, exp_aff, B, G, P, C, Cv, Lm, tau, stream);
+  if (C % 4 != 0 || Lm % 4 != 0 || Lm <= 0 || C <= 0) return cudaErrorInvalidValue;
+  const bool narrow = C <= kExactC;
+  if (2 * Lm <= 512 && Tiling<8>::smem_bytes(C) <= (size_t)kMaxSmem)
+    return (narrow ? launch<8, true> : launch<8, false>)(qk, mk, mv, valid, out, exp_aff, B, G,
+                                                         P, C, Cv, Lm, tau, stream);
+  return (narrow ? launch<16, true> : launch<16, false>)(qk, mk, mv, valid, out, exp_aff, B, G,
+                                                         P, C, Cv, Lm, tau, stream);
 }

@@ -20,7 +20,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from swem_tpu_torch.config import full_float32
+from swem_tpu_torch.config import full_float32, no_grad
 from swem_tpu_torch.models import em
 from swem_tpu_torch.models.swem import SWEM, prepare_em_masks, prepare_em_masks_from_idx
 from swem_tpu_torch.ops.resize import resize
@@ -30,7 +30,7 @@ def _entry_point(fn):
     """Run ``fn`` without gradients, under ``full_float32``."""
     @functools.wraps(fn)
     def run(*args, **kwargs):
-        with torch.no_grad(), full_float32():
+        with no_grad(), full_float32():
             return fn(*args, **kwargs)
     return run
 
@@ -106,11 +106,11 @@ def step(model: SWEM, mem: em.VOSMemory, frame, active, out_size: Tuple[int, int
 
     pred_idx = pred_mask.argmax(dim=-1).to(torch.uint8)
     if do_memorize:
-        mem = _memorize_from_pred(model, mem, frame, active, qk16, s16, vf, pred_idx, pred_mask)
+        mem = memorize_from_pred(model, mem, frame, active, qk16, s16, vf, pred_idx, pred_mask)
     return mem, pred_idx, pred_mask
 
 
-def _memorize_from_pred(model: SWEM, mem, frame, active, qk16, s16, vf, pred_idx, pred_mask):
+def memorize_from_pred(model: SWEM, mem, frame, active, qk16, s16, vf, pred_idx, pred_mask):
     """Value-encode the predicted mask and EM-update the memory."""
     cfg = model.cfg
     soft_in = resize(pred_mask, tuple(frame.shape[1:3]), "bilinear")

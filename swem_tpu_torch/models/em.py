@@ -23,6 +23,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from swem_tpu_torch.config import no_grad
 from swem_tpu_torch.ops.em_kernel import (  # noqa: F401  (E/M/W steps live with the kernel)
     e_step as _e_step,
     em_loop,
@@ -58,14 +59,16 @@ class VOSMemory:
 
     ``first`` holds each object's bases from its activation frame; ``update``
     the latest frame's. ``obj_seen`` (B,N) bool marks initialized slots.
-    ``mem_count`` counts memorize calls on the host: the update bank joins
-    reads once it is >= 2.
+    ``mem_count`` () int32 on the memory's device counts memorize calls: the
+    update bank joins reads once it is >= 2. A tensor, as in the JAX
+    package, so that a traced program (``io/export.py``) carries it as an
+    input rather than baking in its value, and no read syncs on it.
     """
 
     first: Bases
     update: Bases
     obj_seen: torch.Tensor
-    mem_count: int
+    mem_count: torch.Tensor
 
 
 def init_bases(generator: Optional[torch.Generator], batch: int, n_objs: int, key_dim: int,
@@ -83,9 +86,10 @@ def init_bases(generator: Optional[torch.Generator], batch: int, n_objs: int, ke
 def fresh_memory(bases: Bases) -> VOSMemory:
     """Empty memory: both banks at ``bases``, nothing seen."""
     B, N = bases.kappa.shape[:2]
+    dev = bases.kappa.device
     return VOSMemory(first=bases, update=bases,
-                     obj_seen=torch.zeros((B, N), dtype=torch.bool, device=bases.kappa.device),
-                     mem_count=0)
+                     obj_seen=torch.zeros((B, N), dtype=torch.bool, device=dev),
+                     mem_count=torch.zeros((), dtype=torch.int32, device=dev))
 
 
 def em_update(x: torch.Tensor, v: torch.Tensor, masks: torch.Tensor, bases0: Bases, *,
@@ -96,7 +100,7 @@ def em_update(x: torch.Tensor, v: torch.Tensor, masks: torch.Tensor, bases0: Bas
     [bg, fg] pixel weights; bases0: warm start. The loop runs without
     gradients; ``nu`` is differentiable through v and bases0.nu.
     """
-    with torch.no_grad():
+    with no_grad():
         z, kappa, zita = em_loop(x.float(), masks, bases0.kappa, bases0.zita,
                                  n_iters=n_iters, tau=tau)
     zita0 = bases0.zita.detach()
@@ -125,7 +129,8 @@ def memorize(mem: VOSMemory, x, v, masks, active, *, n_iters: int, tau: float) -
 
 def gather_memory(mem: VOSMemory) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Both banks along L plus validity -> mk (B,N,2,Ck,2L), mv (B,N,2,Cv,2L),
-    base_valid (B,N,2,2L). The update half is valid once mem_count >= 2."""
+    base_valid (B,N,2,2L). The update half is valid once mem_count >= 2 (a
+    comparison on the device: no sync)."""
     mk = torch.cat([mem.first.kappa, mem.update.kappa], dim=-1)
     mv = torch.cat([mem.first.nu, mem.update.nu], dim=-1)
     L = mem.first.kappa.shape[-1]

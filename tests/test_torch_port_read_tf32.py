@@ -134,7 +134,8 @@ def test_read_affinity_is_normalization_then_read_normalized():
     assert read_kernel.launches == 0
 
 
-@pytest.mark.parametrize("Ck, L", [(18, 8), (16, 7), (16, 257)])  # Ck % 4, Lm % 4, 2 Lm > 1024
+# widths are padded and any Lm read in column blocks; these Ck fit no query tile
+@pytest.mark.parametrize("Ck, L", [(756, 8), (1024, 7), (760, 257)])
 def test_kernel_path_rejects_shapes_it_cannot_take(Ck, L):
     """A non-CPU tensor of a shape the kernel cannot take raises before any
     build or launch, and never takes the plain version."""
