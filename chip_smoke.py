@@ -142,10 +142,11 @@ Needs one CUDA device and the CUDA toolkit; imports nothing of JAX or of
    "encoder" and "block" at bfloat16 (K1 2 and 3 launches per step, ms and
    peak memory).
 9. the float64 checks of both kernels again, at every shape that phases
-   4-8b and 10 handed them (recorded as they ran; the rank processes report
-   theirs): the evaluator's slot buckets, video batches, multi-scale and
-   YouTube-VOS pixel counts, the session's grown slots, the training shapes
-   (B 8, 4 per rank and 2 at P = 576); tolerances and
+   4-8b, 10 and 11 handed them (recorded as they ran; the rank processes
+   report theirs): the evaluator's slot buckets, video batches, multi-scale
+   and YouTube-VOS pixel counts, the session's grown slots, the training
+   shapes (B 8, 4 per rank and 2 at P = 576), the object shards' (N 1 and
+   2 per shard, B 1 per grid row, B 2 with one slot in training); tolerances and
    the rerun check as in phases 2 and 3. Where the float32 plain loop
    itself leaves K1's n-round limit on a shape's draw (the training shapes'
    P = 576 at 4 rounds: chaos at tau), that shape is held at 1 round on
@@ -180,7 +181,27 @@ Needs one CUDA device and the CUDA toolkit; imports nothing of JAX or of
    videos, K1 and K2 each T_max - 1 launches per batch on each rank (warm-up
    excluded), the PNGs' union against phase 8's one-process bf16 PNGs on
    >= 99.9% of pixels, J&F finite and from rank 0 alone.
-11. one JSON line with every kernel's numbers (``launches`` from the
+11. object parallelism (run before phase 10, inside the shape recording),
+   every grid of ``cuda:0`` repeated, each cell its own shard: the bfloat16
+   model with 4 slots on a T = 12 uint8 video at 480x854 (two videos for
+   B = 2) with four boxes, preprocessed on the card to 480x864.
+   ``ChunkedVideoRunner(chunk=4, mesh=)`` on 1x2, 1x4 and 2x2 grids, each
+   warmed up, then called once: each kernel n_shards x (T - 1) launches,
+   the index maps >= 99% equal to the unsharded runner's on each grid
+   row's video (the batch a row holds: at tau = 0.05 a convolution's batch
+   size alone moves a few pixels, so the unsharded runner's own B = 2
+   against B = 1 share is printed beside); frames/s and peak memory beside
+   the unsharded runner's (smoke numbers: the shards share one card). A
+   ``StreamingSession`` on 1x2 from 2 slots: 5 pushes, ``grow(4)``,
+   ``add_objects`` of slots 3 and 4 (exactly their boxes), 6 pushes, each
+   step 2 launches per kernel and >= 99% equal to the unsharded session's.
+   The ``Evaluator`` with ``obj_parallel=2`` and ``eval_devices`` patched
+   to [cuda:0, cuda:0] on phase 8's video 0: a 1x2 runner, 2 x (T - 1)
+   launches, >= 99% equal to phase 8's PNGs. One float32 S3 train step
+   (B = 2, tamed weights) on a 1x2 grid against the unsharded step: loss
+   within 1e-3 relative, the gradients' global relative L2 difference
+   within 1e-2, K1 2 x (T - 1) launches.
+12. one JSON line with every kernel's numbers (``launches`` from the
    bfloat16 run, ``launches_f32`` from the float32 one, ``launches_runner``
    from phase 6's index runner, ``launches_session`` over phase 7's 12
    pushes, ``launches_export`` from phase 7b's replay (equal to the live
@@ -188,8 +209,17 @@ Needs one CUDA device and the CUDA toolkit; imports nothing of JAX or of
    ``launches_train`` and ``launches_train_f32`` from phase 8b's 10-step
    runs, ``launches_ddp`` from phase 10's 10-step bfloat16 run and
    ``launches_dist_eval`` from its sequential evaluation, each summed over
-   the ranks), then the card line, then the final ``{"ok": true, ...}``
-   line.
+   the ranks, ``launches_obj`` from phase 11's three sharded runner calls,
+   summed), then the card line, then the final ``{"ok": true, ...}`` line.
+
+    python3 chip_smoke.py --obj-cards
+
+needs two or more cards and runs phase 11's runner grids and session over
+distinct cards (shard k on card k mod the count; the shards on cards other
+than the model's run copies of it): K1 and K2 at a per-shard shape on each
+card bit for bit against cuda:0, then each grid's launches and its index
+maps against the unsharded runner and session on cuda:0, as phase 11 holds
+them. It prints no JSON lines.
 """
 
 from __future__ import annotations
@@ -234,16 +264,24 @@ DDP_WORLD = 2
 DDP_WORKERS = TRAIN_WORKERS // DDP_WORLD
 DDP_ITERS, RANK_TIMEOUT_S = TRAIN_ITERS, 300
 # K1's shapes in training, (B, N, P, Ck, L) at B = 8, a DDP rank's 4 and the
-# card-vs-CPU step's B = 2: at 4 rounds the float32 plain loop itself leaves
+# card-vs-CPU step's B = 2 (and its object shards'): at 4 rounds the float32 plain loop itself leaves
 # K1's limit on the x std 0.3 draw (chaos at tau), so phase 9 holds them at
 # 4 rounds on a draw of CHAOTIC_X_STD (and at 1 round on the std 0.3 draw)
 TRAIN_EM_SHAPES = {(b, 2, (TRAIN_CROP // 16) ** 2, 128, 128)
                    for b in (TRAIN_B, TRAIN_B // DDP_WORLD, 2)}
+# ... and phase 11's train step over a 1x2 object grid: B = 2, one slot per shard
+TRAIN_EM_SHAPES.add((2, 1, (TRAIN_CROP // 16) ** 2, 128, 128))
 CHAOTIC_X_STD = 0.15
 # phase 9's new shapes (Ck, L) at B 1, N 2, P NEW_P, K2's Lm = 2 L and Cv 512:
 # widths of --key_dim and --num_bases off the flagship's, padded inside the
 # ops; K1 also at NEW_ROUNDS rounds
 NEW_SHAPES, NEW_P, NEW_ROUNDS = ((8, 4), (24, 12), (100, 300), (512, 128), (256, 512)), 576, 4
+# the object-parallel phase: a T_OBJ uint8 video of B = 2 at OUT_SIZE with four
+# boxes in four slots, runners in chunks of OBJ_CHUNK over grids (n_data, n_obj)
+# of cuda:0 repeated, the session's N_PUSH steps growing 2 -> 4 slots after
+# OBJ_GROW_AT pushes
+T_OBJ, OBJ_CHUNK, OBJ_GRIDS, OBJ_GROW_AT = 12, 4, ((1, 2), (1, 4), (2, 2)), 5
+OBJ_BOXES = ((100, 220, 150, 330), (260, 400, 500, 700), (30, 150, 560, 820), (300, 450, 40, 260))
 # peak rates of an H100 (NVIDIA data sheet): FP32 outside the tensor cores, memory,
 # dense TF32 on the tensor cores
 PEAKS = {"sxm": (67e12, 3.35e12, 495e12), "pcie": (51e12, 2.0e12, 378e12)}
@@ -428,7 +466,9 @@ def check_em(peaks) -> dict:
 
 
 def read_inputs(rng, B, N, P, Ck, Lm, Cv, valid_case):
-    """Std-normal qk, mk, mv on the card and base_valid for one of READ_CASES."""
+    """Std-normal qk, mk, mv on the card and base_valid for one of READ_CASES
+    (the object never seen is object 1, or object 0 when it is the only one,
+    as on an object shard of one slot)."""
     import torch
 
     qk, mk, mv = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).cuda()
@@ -437,7 +477,7 @@ def read_inputs(rng, B, N, P, Ck, Lm, Cv, valid_case):
     if valid_case != "all valid":
         valid[:, 0, :, Lm // 2:] = False  # object 0: update bank not yet valid
     if valid_case == "object never seen":
-        valid[:, 1] = False
+        valid[:, min(1, N - 1)] = False
     return qk, mk, mv, valid
 
 
@@ -458,7 +498,8 @@ def read_case(name: str, inputs, tau: float) -> float:
     torch.cuda.synchronize()
     errs = [compare(f"K2 {name} {o}", g, r, 1e-4, 1e-6)
             for o, g, r in zip(("mem_out", "exp_aff"), got, ref)]
-    if not valid[:, 1].any() and bool(got[0][:, 1].any() or got[1][:, 1].any()):
+    unseen = min(1, valid.shape[1] - 1)
+    if not valid[:, unseen].any() and bool(got[0][:, unseen].any() or got[1][:, unseen].any()):
         fail(f"K2 {name}: an object with no valid base must read exactly 0")
     if not all(torch.equal(a, b) for a, b in zip(got, again)):
         fail(f"K2 {name}: two runs on the same inputs gave different bits")
@@ -2254,6 +2295,268 @@ def ddp_path(card: str, train: dict, eval_refs: dict) -> dict:
             "shapes": shapes}
 
 
+# ---------------------------------------------------------------------------
+# phase 11: object parallelism over grids of cuda:0 repeated
+def obj_box_labels(n: int) -> np.ndarray:
+    """(Ho, Wo) uint8 labels 1..n of the first n OBJ_BOXES at OUT_SIZE."""
+    labels = np.zeros(OUT_SIZE, np.uint8)
+    for k, (y0, y1, x0, x1) in enumerate(OBJ_BOXES[:n], start=1):
+        labels[y0:y1, x0:x1] = k
+    return labels
+
+
+def obj_model(model):
+    """The 4-slot copy of ``model`` that the object grids run."""
+    from swem_tpu_torch.models.swem import SWEM
+
+    m4 = SWEM(dataclasses.replace(model.cfg, max_objs=4), device=next(model.parameters()).device)
+    m4.load_state_dict(model.state_dict())
+    return m4
+
+
+def obj_runners(m4, card: str, cards: list) -> dict:
+    """The runner over each of OBJ_GRIDS, the k-th shard on ``cards[k % len(cards)]``,
+    against the unsharded runner on the model's card; returns the sharded
+    runners' launch counts, summed over the grids."""
+    import torch
+    from swem_tpu_torch import engine
+    from swem_tpu_torch.bench import uint8_frames
+    from swem_tpu_torch.ops.resize import resize
+    from swem_tpu_torch.parallel import make_mesh2
+
+    n = m4.cfg.max_objs
+    frames = np.stack([uint8_frames((T_OBJ,) + OUT_SIZE + (3,), 11 + b) for b in range(2)], 1)
+    labels = obj_box_labels(n)
+    mask = np.repeat((labels[None, ..., None] == np.arange(n + 1)).astype(np.float32), 2, 0)
+    active = np.ones((2, n), bool)
+
+    def pre(f):
+        return resize(f.float() / 255.0, IN_SIZE, "bicubic")
+
+    def peak_mb() -> float:
+        return sum(torch.cuda.max_memory_allocated(d) for d in cards) / 2 ** 20
+
+    def run(grid, videos: slice):
+        """A warmed runner on ``grid`` (None: unsharded) for ``videos``, called
+        once with the counts read: (maps, launches, frames/s, peak MB summed
+        over ``cards``)."""
+        B = len(range(2)[videos])
+        shards = 1 if grid is None else grid[0] * grid[1]
+        mesh = None if grid is None else make_mesh2(
+            *grid, devices=[cards[k % len(cards)] for k in range(shards)])
+        runner = engine.ChunkedVideoRunner(m4, OUT_SIZE, chunk=OBJ_CHUNK, preprocess=pre,
+                                           mesh=mesh)
+        runner.warmup(OUT_SIZE, B, n, np.uint8)
+        for d in cards:
+            torch.cuda.synchronize(d)
+            torch.cuda.reset_peak_memory_stats(d)
+        t0 = time.perf_counter()
+        maps, launches = counted(
+            lambda: runner(torch.Generator().manual_seed(3), frames[:, videos], mask[videos],
+                           active[videos]), shards * (T_OBJ - 1), f"object runner {grid}")
+        dt = time.perf_counter() - t0
+        return maps, launches, T_OBJ * B / dt, peak_mb()
+
+    # the unsharded runner on each video alone, the batch a grid row holds, and
+    # on both videos at once: its own B = 2 against B = 1 shows what a
+    # convolution's batch size alone moves at tau = 0.05 (reported, not gated)
+    alone = [run(None, slice(b, b + 1)) for b in range(2)]
+    both = run(None, slice(0, 2))
+    batch_share = float((both[0] == np.concatenate([a[0] for a in alone], 1)).mean())
+    launches_obj = {"em_loop": 0, "read_memory": 0}
+    where = ", ".join(map(str, cards))
+    for grid in OBJ_GRIDS:
+        B = grid[0]
+        maps, launches, fps, peak = run(grid, slice(0, B))
+        ref = np.concatenate([a[0] for a in alone[:B]], 1)  # per grid row: one video
+        ref_fps, ref_peak = (alone[0] if B == 1 else both)[2:]
+        same = float((maps == ref).mean())
+        for k in launches_obj:
+            launches_obj[k] += launches[k]
+        print(f"object runner (bfloat16) {grid[0]}x{grid[1]} grid over [{where}], B={B}, "
+              f"T={T_OBJ}, {n} objects: index pixels identical to the unsharded runner's on "
+              f"each row's video {same:.6f} (gate 0.99)"
+              + ("" if B == 1 else f", to its B = 2 call {float((maps == both[0]).mean()):.6f}"
+                 f" (its own B = 2 against B = 1: {batch_share:.6f})")
+              + f"; launches {launches} (n_shards x (T - 1)); {fps:.2f} frames/s, peak "
+              f"{peak:.1f} MB, unsharded B={B} {ref_fps:.2f} frames/s, {ref_peak:.1f} MB (smoke "
+              f"numbers) on {card}", flush=True)
+        if same < 0.99:
+            fail(f"object runner {grid}: only {same:.4f} of index pixels agree with unsharded")
+    return launches_obj
+
+
+def obj_session(m4, cards: list) -> None:
+    """The session on a 1x2 grid over ``cards`` (repeated if it holds one):
+    2 slots, OBJ_GROW_AT pushes, grow(4), slots 3 and 4 added, then pushes
+    up to N_PUSH steps; per step against the unsharded session."""
+    from swem_tpu_torch.bench import uint8_frames
+    from swem_tpu_torch.parallel import make_mesh2
+    from swem_tpu_torch.serve import StreamingSession
+
+    dev = next(m4.parameters()).device
+    labels = obj_box_labels(m4.cfg.max_objs)
+    sframes = uint8_frames((N_PUSH + 1,) + OUT_SIZE + (3,), 21)
+    first, late = np.where(labels <= 2, labels, 0), np.where(labels > 2, labels, 0)
+
+    def steps(sess):
+        maps = [sess.push(f) for f in sframes[1:OBJ_GROW_AT + 1]]
+        sess.grow(4)
+        maps.append(sess.add_objects(sframes[OBJ_GROW_AT + 1], late, [3, 4]))
+        return np.stack(maps + [sess.push(f) for f in sframes[OBJ_GROW_AT + 2:]])
+
+    grid = [cards[k % len(cards)] for k in range(2)]
+    streams = {}
+    for shards, mesh in ((1, None), (2, make_mesh2(1, 2, devices=grid))):
+        sess = StreamingSession(m4.cfg, m4.state_dict(), raw_hw=OUT_SIZE, in_size=IN_SIZE,
+                                out_size=OUT_SIZE, n_slots=2, device=dev, mesh=mesh)
+        sess.warmup()
+        sess.start(sframes[0], first)
+        streams[shards] = counted(lambda: steps(sess), shards * N_PUSH, f"session {shards}")[0]
+    shares = (streams[2] == streams[1]).reshape(N_PUSH, -1).mean(1)
+    held = float((streams[2][OBJ_GROW_AT][late > 0] == late[late > 0]).mean())
+    print(f"object session (bfloat16) 1x2 grid over [{', '.join(map(str, grid))}]: {N_PUSH} "
+          f"steps, grow(4) after {OBJ_GROW_AT}, index pixels identical to the unsharded "
+          f"session's per step {' '.join(f'{v:.6f}' for v in shares)} (gate 0.99); added slots "
+          f"hold {held:.6f} of their boxes", flush=True)
+    if shares.min() < 0.99 or held < 1.0:
+        fail(f"object session: {shares.min():.4f} of a step's pixels agree with unsharded, the "
+             f"added slots hold {held:.4f} of their boxes")
+
+
+def obj_path(model, card: str, eval_refs: dict, train_root: Path) -> dict:
+    """Phase 11: the runner, the session, the evaluator and the train step
+    sharded over object grids of one card; returns the sharded runners'
+    launch counts, summed over the grids."""
+    import torch
+    from swem_tpu_torch import parallel
+    from swem_tpu_torch.config import EvalConfig, SWEMConfig
+    from swem_tpu_torch.eval.evaluator import Evaluator
+    from swem_tpu_torch.models import em
+    from swem_tpu_torch.models.swem import SWEM
+    from swem_tpu_torch.parallel import EngineSharding, make_mesh2
+    from swem_tpu_torch.train.trainer import batch_to_device, create_train_state, make_train_step
+    from swem_tpu_torch.utils import setup_logger
+
+    t_phase = time.perf_counter()
+    dev = next(model.parameters()).device  # cuda:0
+    m4 = obj_model(model)
+    launches_obj = obj_runners(m4, card, [dev])
+    obj_session(m4, [dev])
+
+    # the evaluator on phase 8's video 0 with two object shards on cuda:0
+    work = eval_refs["davis"].parent
+    ecfg = SWEMConfig(model=model.cfg, log_dir=str(work / "logs" / "obj"),
+                      eval=EvalConfig(data_root=str(work / "davis_one"), max_objs=8,
+                                      davis_in_size=EVAL_IN, obj_parallel=2))
+    name, T0, _ = EVAL_VIDEOS[0]
+    eval_devices = parallel.eval_devices
+    parallel.eval_devices = lambda device=None: [dev, dev]
+    try:
+        ev = Evaluator(ecfg, model.state_dict(), device=dev,
+                       logger=setup_logger("chip_smoke_eval_obj", str(work / "logs" / "obj"),
+                                           screen=False))
+        ev.evaluate()
+        counted(ev.evaluate, 2 * (T0 - 1), "object evaluator")
+    finally:
+        parallel.eval_devices = eval_devices
+    meshes = [k[-1] for k in ev._runners]
+    got, ref = read_pngs(Path(ev.out_root) / name), read_pngs(eval_refs["seq"] / name)
+    same = float((got == ref).mean()) if got.shape == ref.shape else 0.0
+    print(f"object evaluator (bfloat16) obj_parallel=2 on [cuda:0, cuda:0]: runner meshes "
+          f"{meshes}; {name}'s PNGs identical to phase 8's {same:.6f} (gate 0.99)", flush=True)
+    if same < 0.99 or meshes != [(("data", "obj"), (1, 2), (str(dev), str(dev)))]:
+        fail(f"object evaluator: {same:.4f} of pixels agree with phase 8, meshes {meshes}")
+
+    # one float32 S3 step on a 1x2 grid against the unsharded step
+    tcfg = s3_config(train_root, train_root, "float32", data={"batch_size": 2, "num_workers": 0})
+    batch, weights = loader_batch(tcfg), tamed_weights(tcfg)
+    mc = tcfg.model
+    bases = em.init_bases(torch.Generator().manual_seed(5), 2, mc.max_objs, mc.keydim,
+                          mc.valdim, mc.num_bases)
+
+    def train_step(sharding, k1):
+        tm = SWEM(mc, device=dev)
+        tm.load_state_dict(weights)
+        state = create_train_state(tm, tcfg.solver)
+        step = make_train_step(tcfg, sharding=sharding)
+        losses, _ = counted(lambda: step(state, batch_to_device(batch, tm.device),
+                                         bases=bases.to(tm.device)),
+                            {"em_loop": k1, "read_memory": 0}, f"train step {k1 // 2} shards")
+        return (float(losses["total_loss"]),
+                {k: p.grad.detach().double().cpu() for k, p in tm.named_parameters()})
+
+    plain = train_step(None, TRAIN_FRAMES - 1)
+    sharded = train_step(EngineSharding(make_mesh2(1, 2, devices=[dev] * 2)),
+                         2 * (TRAIN_FRAMES - 1))
+    loss_rel, glob, _ = grad_difference(sharded, plain)
+    print(f"object train step (float32, B=2, {TRAIN_CROP}x{TRAIN_CROP}, T={TRAIN_FRAMES}, tamed "
+          f"weights) 1x2 grid against unsharded: loss {sharded[0]:.8f} vs {plain[0]:.8f}, "
+          f"relative difference {loss_rel:.3e} (gate 1e-3); gradients' global relative L2 "
+          f"difference {glob:.3e} (gate 1e-2)", flush=True)
+    if not loss_rel <= 1e-3 or not glob <= 1e-2:
+        fail(f"object train step: loss {loss_rel:.3e} (gate 1e-3), gradients {glob:.3e} "
+             f"(gate 1e-2)")
+    print(f"object-parallel phase: wall {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches_obj
+
+
+def obj_cards_main() -> int:
+    """``chip_smoke.py --obj-cards``: phase 11's runner grids and session over
+    distinct cards (two or more), the k-th shard on card k mod the count,
+    each held against the unsharded runner or session on cuda:0; first each
+    kernel's per-shard launch on every card against its launch on cuda:0,
+    bit for bit (the cards are alike, the kernels deterministic)."""
+    import torch
+
+    n_cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if n_cards < 2:
+        print(f"chip_smoke --obj-cards: needs two or more CUDA devices, found {n_cards}",
+              file=sys.stderr)
+        return 1
+    if not (ROOT / "swem_tpu_torch" / "csrc").is_dir():
+        print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT))
+    faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
+    from swem_tpu_torch.config import ModelConfig
+    from swem_tpu_torch.models.swem import SWEM
+    from swem_tpu_torch.ops import build, em_kernel, read_kernel
+    from swem_tpu_torch.ops.em_kernel import l2norm
+
+    t_start = time.perf_counter()
+    card = card_line()
+    cards = [torch.device("cuda", i) for i in range(n_cards)]
+    print(f"cards: {n_cards} x {card}; torch {torch.__version__}, CUDA {torch.version.cuda}",
+          flush=True)
+    report = build.build()
+    print(f"build: {time.perf_counter() - t_start:.1f} s wall", flush=True)
+
+    rng = np.random.default_rng(12)
+    x, masks, kappa0, zita0 = em_inputs(rng, 1, 1, 1620, 128, 128, 0.3)
+    qk, mk, mv, valid = read_inputs(rng, 1, 1, 1620, 128, 256, 512, "update bank invalid")
+    qn, mkn = l2norm(qk, -1), l2norm(mk, -2)
+    ref = None
+    for d in cards:
+        em_in = [t.to(d) for t in (x, masks, kappa0, zita0)]
+        got = [t.cpu() for t in list(em_kernel.em_loop(*em_in, n_iters=4, tau=0.05))
+               + list(read_kernel.read_normalized(*(t.to(d) for t in (qn, mkn, mv, valid)),
+                                                  tau=0.05))]
+        ref = got if ref is None else ref
+        if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+            fail(f"the kernels on {d} gave other bits than on {cards[0]}")
+    print(f"K1 (1, 1, 1620, 128, 128) x 4 rounds and K2 (1, 1, 1620, 128, 256, 512) on each of "
+          f"{n_cards} cards: bit-identical to cuda:0", flush=True)
+
+    m4 = obj_model(SWEM(ModelConfig(dtype="bfloat16")).init_weights(0))
+    launches = obj_runners(m4, card, cards)
+    obj_session(m4, cards)
+    faulthandler.cancel_dump_traceback_later()
+    print(f"chip_smoke --obj-cards: passed in {time.perf_counter() - t_start:.1f} s; "
+          f"sharded runners' launches {launches}; build {sorted(report)}", flush=True)
+    return 0
+
+
 def read_global_csv(save_dir: Path) -> dict:
     names, values = (save_dir / "global_results-DAVIS17.csv").read_text().split()
     return dict(zip(names.split(","), map(float, values.split(","))))
@@ -2353,8 +2656,9 @@ def main() -> int:
         launches_session = session_path(bf16, card)
         launches_export = export_path(bf16, card)
         launches_eval, eval_refs = eval_path(bf16, card)
-        del bf16
         train = train_path(card)
+        launches_obj = obj_path(bf16, card, eval_refs, train["root"])
+        del bf16
     ddp = ddp_path(card, train, eval_refs)
     for k, v in ddp["shapes"].items():
         shapes[k] |= v
@@ -2373,6 +2677,7 @@ def main() -> int:
         e["launches_train_f32"] = train["launches_f32"][e["name"]]
         e["launches_ddp"] = ddp["launches_ddp"][e["name"]]
         e["launches_dist_eval"] = ddp["launches_dist_eval"][e["name"]]
+        e["launches_obj"] = launches_obj[e["name"]]
     faulthandler.cancel_dump_traceback_later()
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
@@ -2386,4 +2691,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--rank"]:
         sys.exit(rank_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--obj-cards"]:
+        sys.exit(obj_cards_main())
     sys.exit(replay_main(sys.argv[2:]) if sys.argv[1:2] == ["--replay"] else main())

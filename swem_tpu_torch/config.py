@@ -140,7 +140,7 @@ class EvalConfig:
     max_objs: int = 8  # static object-slot budget at evaluation
     flip: bool = False
     scales: Sequence[int] = (480,)
-    obj_parallel: int = 1  # object slots over this many devices: not ported
+    obj_parallel: int = 1  # object slots over this many devices (parallel/mesh.py)
     per_object_csv: bool = False
 
 

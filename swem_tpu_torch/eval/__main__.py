@@ -9,8 +9,8 @@ the plain PyTorch path). Examples:
         --data_root /data/YTVOS19/valid_all_frames --resume ckpts/swem.pth
 
 ``--resume`` is a reference ``.pth``; an orbax directory is read by the JAX
-package. ``--obj_parallel > 1`` is not ported and raises
-``NotImplementedError``.
+package. ``--obj_parallel N`` shards each video's object slots over up to N
+of the visible cards (one process; see ``eval/evaluator.py``).
 
 Distributed evaluation: each process evaluates a round-robin slice of the
 videos into the shared ``--log_dir`` and process 0 scores them:
@@ -23,7 +23,8 @@ videos into the shared ``--log_dir`` and process 0 scores them:
 ``--distributed`` alone takes the group from the environment (``env://``);
 the three flags rendezvous at ``tcp://<coordinator>``. The group is Gloo
 (it only waits at a barrier); each process computes on ``--device`` when
-given, else on ``cuda:<LOCAL_RANK>``.
+given, else on ``cuda:<LOCAL_RANK>``, and on that device alone: with
+``--distributed``, ``--obj_parallel`` clamps to 1.
 """
 
 from __future__ import annotations
@@ -59,7 +60,8 @@ def get_args(argv=None):
     p.add_argument("--video_batch", type=int, default=1,
                    help="videos per device batch (throughput mode)")
     p.add_argument("--obj_parallel", type=int, default=1,
-                   help="object slots over this many devices (not ported: must be 1)")
+                   help="object slots over this many devices (clamped to a power of two "
+                        "dividing the slot bucket and the device count)")
     p.add_argument("--distributed", action="store_true",
                    help="each process evaluates a disjoint slice of the videos, process 0 "
                         "scores them; the group from the environment (env://) unless "
@@ -105,10 +107,6 @@ def build_config(args):
 
 def main(argv=None):
     args = get_args(argv)
-    if args.obj_parallel > 1:
-        from swem_tpu_torch.eval.evaluator import OBJ_PARALLEL_TODO
-
-        raise NotImplementedError(OBJ_PARALLEL_TODO)
     flags = (args.coordinator, args.num_processes, args.process_id)
     if not args.distributed and flags == (None,) * 3:
         return _evaluate(args, args.device)

@@ -28,8 +28,14 @@ outside it.
 Distributed evaluation (``parallel.init_distributed``): each process
 evaluates a round-robin slice of the videos (sequentially) or of the batch
 plan (``video_batch > 1``) into the shared results tree, all wait at a
-barrier, and process 0 alone scores the PNGs. Object parallelism
-(``obj_parallel > 1``) is not ported.
+barrier, and process 0 alone scores the PNGs.
+
+Devices inside a process (``parallel.eval_devices``: every visible card, or
+the rank's alone under a process group): ``obj_parallel > 1`` shards each
+video's slots over that many of them (``_obj_mesh``: clamped to a power of
+two dividing the slot bucket and the device count, with a log line), and
+``video_batch > 1`` shards each batch's videos over the devices left
+(``parallel.derive_eval_mesh_extents``), as the JAX evaluator does.
 """
 
 from __future__ import annotations
@@ -52,10 +58,6 @@ from swem_tpu_torch.ops.resize import resize
 from swem_tpu_torch.registry import register_evaluator
 from swem_tpu_torch.utils import FrameSecondMeter, mkdir, setup_logger
 from swem_tpu_torch.utils.host_io import AsyncWriter, prefetch
-
-OBJ_PARALLEL_TODO = ("object parallelism (obj_parallel > 1) is not ported yet (ROADMAP.md "
-                     "Queue 1 item 7)")
-
 
 def _preprocess(size: Tuple[int, int]):
     """uint8 frames -> float32 in [0, 1], bicubic to ``size`` where they differ
@@ -87,8 +89,6 @@ class Evaluator:
     CUDA)."""
 
     def __init__(self, cfg: SWEMConfig, state_dict, logger=None, device=None):
-        if cfg.eval.obj_parallel > 1:
-            raise NotImplementedError(OBJ_PARALLEL_TODO)
         self.cfg = cfg
         self.eval_set = cfg.eval.eval_set
         self.model = SWEM(cfg.model, device)  # one model for every slot bucket
@@ -147,15 +147,51 @@ class Evaluator:
             b *= 2
         return min(b, self.n_slots)
 
+    def _obj_mesh(self, n_slots: int, n_data: int = 1):
+        """('data', 'obj') mesh for object-parallel evaluation, or None when off.
+
+        Shards each video's slots over ``obj_parallel`` devices of this
+        process (``parallel.eval_devices``), clamped to a power of two that
+        divides the slot bucket, with at most the devices there are for each
+        of the ``n_data`` rows (``_runner`` logs the outcome)."""
+        k = self.cfg.eval.obj_parallel
+        if k <= 1:
+            return None
+        devs = parallel.eval_devices(self.model.device)
+        n_obj = parallel.clamp_pow2(min(k, n_slots, max(1, len(devs) // n_data)), n_slots)
+        if n_obj <= 1:
+            return None
+        return parallel.make_mesh2(n_data=n_data, n_obj=n_obj, devices=devs)
+
+    def _batch_mesh(self, vb: int):
+        """Batched evaluation's plan: (n_data, None, a 'data' mesh, or
+        "obj2d": the bucket-clamped ``_obj_mesh`` of each group), logged."""
+        devs = parallel.eval_devices(self.model.device)
+        n_data, n_obj = parallel.derive_eval_mesh_extents(len(devs), self.cfg.eval.obj_parallel,
+                                                          vb)
+        if n_data * n_obj == 1:
+            return n_data, None
+        self.logger.info(f"sharding video batches over {n_data} devices"
+                         + ("" if n_obj == 1 else f" x {n_obj} object shards"))
+        return n_data, "obj2d" if n_obj > 1 else parallel.make_mesh(n_data, devices=devs)
+
     def _runner(self, raw_hw, in_size, out_size, bucket: int, batch: int = 1,
-                scores: bool = False) -> ChunkedVideoRunner:
-        """The chunked runner of one shape signature, built and warmed up on
-        first use (outside the frames/s span) and cached."""
-        key = (tuple(raw_hw), tuple(in_size), tuple(out_size), bucket, batch, scores)
+                scores: bool = False, mesh=None) -> ChunkedVideoRunner:
+        """The chunked runner of one shape signature and mesh (default:
+        ``_obj_mesh(bucket)``), built and warmed up on first use (outside the
+        frames/s span) and cached."""
+        if mesh is None:
+            mesh = self._obj_mesh(bucket)
+        mesh_key = None if mesh is None else (mesh.axis_names, mesh.devices.shape,
+                                              tuple(map(str, mesh.devices.ravel())))
+        key = (tuple(raw_hw), tuple(in_size), tuple(out_size), bucket, batch, scores, mesh_key)
         if key not in self._runners:
+            if self.cfg.eval.obj_parallel > 1 or mesh is not None:
+                self.logger.info(f"obj_parallel {self.cfg.eval.obj_parallel}, {bucket} slots, "
+                                 f"video batch {batch}: runner on {mesh or 'one device'}")
             runner = ChunkedVideoRunner(self.model, out_size, chunk=self.cfg.eval.chunk,
                                         scores=scores, preprocess=_preprocess(in_size),
-                                        injectable=True)
+                                        injectable=True, mesh=mesh)
             runner.warmup(raw_hw, batch, bucket, frame_dtype=np.uint8)
             self._runners[key] = runner
         return self._runners[key]
@@ -201,12 +237,15 @@ class Evaluator:
                         new[b, slot] = True
         return init_mask, active, injections
 
-    def _infer(self, videos: List, bucket: int, fps: FrameSecondMeter) -> np.ndarray:
-        """One batch of videos through its runner -> (T_max-1, B, Ho, Wo) uint8."""
+    def _infer(self, videos: List, bucket: int, fps: FrameSecondMeter,
+               mesh=None) -> np.ndarray:
+        """One batch of videos through its runner (on ``mesh``, default
+        ``_obj_mesh(bucket)``) -> (T_max-1, B, Ho, Wo) uint8."""
         frames = _stack_padded(videos)
         init_mask, active, injections = self._inputs(videos, bucket)
         in_size, out_size = self._sizes(videos[0])
-        runner = self._runner(frames.shape[2:4], in_size, out_size, bucket, len(videos))
+        runner = self._runner(frames.shape[2:4], in_size, out_size, bucket, len(videos),
+                              mesh=mesh)
         fps.tic()
         preds = runner(None, frames, init_mask, active, injections,
                        bases=self.initial_bases(bucket))
@@ -321,11 +360,16 @@ class Evaluator:
             indices = [i for i, _ in items]
             plan += [(key[-1], indices[i:i + vb]) for i in range(0, len(indices), vb)]
         plan = plan[self._pid::self._nproc]
+        n_data, mesh = self._batch_mesh(vb)
         fps = FrameSecondMeter()
         batches = prefetch(lambda p: (p[0], [self.dataset[j] for j in p[1]]), plan, depth=1)
         with AsyncWriter() as writer:
             for bucket, videos in batches:
-                preds = self._infer(videos, bucket, fps)
+                group_mesh = None
+                if mesh is not None and len(videos) % n_data == 0:
+                    group_mesh = (self._obj_mesh(bucket, n_data=n_data) if mesh == "obj2d"
+                                  else mesh)
+                preds = self._infer(videos, bucket, fps, mesh=group_mesh)
                 for b, v in enumerate(videos):
                     self._save(writer, v, preds[:, b])
                 self.logger.info(f"batch of {len(videos)} videos ({[v.name for v in videos]}, "

@@ -150,6 +150,14 @@ class SWEM(nn.Module):
         valid_obj (B,N) or None. Returns (logits, pred_mask), both
         (B,Ho,Wo,N+1).
         """
+        logits = aggregate(self.decode_objects(context, skip8, skip4, valid_obj, out_size))
+        return logits, torch.softmax(logits, dim=-1)
+
+    def decode_objects(self, context, skip8, skip4, valid_obj: Optional[torch.Tensor],
+                       out_size: Tuple[int, int]):
+        """The per-object half of ``decode``: each object's sigmoid
+        probability (B,Ho,Wo,N), times ``valid_obj``. Objects do not meet
+        before ``aggregate``, so an object shard runs this for its slots."""
         B, N = context.shape[:2]
         logit = self.decoder.decode_with_skips(
             context.reshape((B * N,) + context.shape[2:]), _fold(skip8, N), _fold(skip4, N),
@@ -158,8 +166,7 @@ class SWEM(nn.Module):
         preds = torch.sigmoid(logit[:, 0]).reshape((B, N) + tuple(out_size)).movedim(1, -1)
         if valid_obj is not None:
             preds = preds * valid_obj[:, None, None, :]
-        logits = aggregate(preds)
-        return logits, torch.softmax(logits, dim=-1)
+        return preds
 
 
 def aggregate(prob: torch.Tensor) -> torch.Tensor:
@@ -184,11 +191,14 @@ def prepare_em_masks(masks_hard, masks_soft, size16: Tuple[int, int]) -> torch.T
     return _stack_em_masks(hard, soft)
 
 
-def prepare_em_masks_from_idx(pred_idx, masks_soft, size16: Tuple[int, int]) -> torch.Tensor:
+def prepare_em_masks_from_idx(pred_idx, masks_soft, size16: Tuple[int, int],
+                              slot0: int = 0) -> torch.Tensor:
     """``prepare_em_masks`` from the argmax index map (B,Ho,Wo): the nearest
-    resize commutes with the one-hot, so no full-size one-hot is built."""
+    resize commutes with the one-hot, so no full-size one-hot is built.
+    ``masks_soft``'s object channels are slots ``slot0 + 1, ...`` of the
+    map (an object shard's)."""
     idx16 = resize(pred_idx[..., None], size16, "nearest")[..., 0].long()
-    slots = torch.arange(1, masks_soft.shape[-1], device=idx16.device)
+    slots = torch.arange(slot0 + 1, slot0 + masks_soft.shape[-1], device=idx16.device)
     hard = (idx16[..., None] == slots).float()
     soft = resize(masks_soft[..., 1:].float(), size16, "bilinear")
     return _stack_em_masks(hard, soft)

@@ -1,6 +1,6 @@
-"""Data parallelism over processes: the port's counterpart of the
-data-parallel half of ``swem_tpu/parallel/mesh.py`` (``make_mesh``,
-``shard_batch``, ``replicate``, ``eval_devices``).
+"""Parallelism: data parallelism over processes, the port's counterpart of
+the multi-host half of ``swem_tpu/parallel/mesh.py`` (``shard_batch``,
+``replicate``), and object parallelism over a device grid (``mesh.py``).
 
 The reference's only multi-device strategy is data parallelism over NCCL
 DDP (reference ``train.py:37``, ``swem_trainer.py:42-43``): one process per
@@ -12,16 +12,18 @@ device, each reading its own shard of every batch, gradients averaged by
   otherwise ``env://``, what ``python -m torch.distributed.run`` sets (the
   reference's protocol); ``process_group`` is the CLIs' scope around it.
 * ``process_index``/``process_count`` stand for ``jax.process_index``/
-  ``jax.process_count``; ``rank_device`` for ``eval_devices``: the device
-  this process computes on.
+  ``jax.process_count``; ``rank_device`` is the device this process
+  computes on (``eval_devices`` under a process group).
 * ``shard_rows`` is this process's rows of a global batch, ``x[rank::world]``,
   the rows the loader's shard holds (``data/loader.py``); parameters need
   no ``replicate``: ``DistributedDataParallel`` broadcasts rank 0's at
   construction. ``global_mean`` averages a logged value over the
   processes; ``barrier`` waits for all of them.
 
-Object parallelism (``make_mesh2``, ``EngineSharding``,
-``derive_eval_mesh_extents``, ``clamp_pow2``) is not ported.
+Object parallelism (``mesh.py``: ``make_mesh2``, ``EngineSharding``,
+``derive_eval_mesh_extents``, ``clamp_pow2``) runs the shards of a device
+grid inside one process; it composes with these processes as JAX's local
+meshes compose with its hosts.
 """
 
 from __future__ import annotations
@@ -32,6 +34,16 @@ from typing import Optional
 
 import torch
 import torch.distributed as dist
+
+from swem_tpu_torch.parallel.mesh import (  # noqa: F401  (re-exported)
+    EngineSharding,
+    Mesh,
+    clamp_pow2,
+    derive_eval_mesh_extents,
+    eval_devices,
+    make_mesh,
+    make_mesh2,
+)
 
 
 def init_distributed(coordinator: Optional[str] = None, num_processes: Optional[int] = None,

@@ -26,6 +26,13 @@ draw for the new slots is seeded from ``(seed, frames_seen)`` through
 frames_seen)`` plays in the JAX package. ``start`` and ``grow`` take
 ``bases`` to use a given draw instead (the JAX package's, in the parity
 tests).
+
+Object parallelism: ``mesh`` (``parallel.make_mesh2``) splits the slots
+over its 'obj' axis (``parallel.EngineSharding``), the one parallelism a
+single stream can use: each shard reads, decodes, value-encodes and
+memorizes its own slots, with one gather of the objects per frame. The
+memory stays split by slot between frames; ``grow`` joins it, pads it and
+splits it again over the grown budget, which the axis must divide.
 """
 
 from __future__ import annotations
@@ -44,6 +51,7 @@ from swem_tpu_torch.data.davis_test import to_onehot
 from swem_tpu_torch.models import em
 from swem_tpu_torch.models.swem import SWEM
 from swem_tpu_torch.ops.resize import resize
+from swem_tpu_torch.parallel.mesh import EngineSharding
 from swem_tpu_torch.utils.profiling import device_busy_seconds
 
 
@@ -85,13 +93,21 @@ class StreamingSession:
     size to ``in_size`` (bicubic) where the two differ; ``raw_hw`` is the
     capture size that ``warmup`` prepares for. Predictions are (Ho, Wo)
     uint8 label maps at ``out_size``. ``state_dict`` is the port model's
-    (for example from ``io/jax_import.py::jax_to_state_dict``).
+    (for example from ``io/jax_import.py::jax_to_state_dict``). With a
+    ``mesh`` whose 'obj' axis divides ``n_slots``, the model lives on its
+    first device unless ``device`` says otherwise.
     """
 
     def __init__(self, model_cfg: ModelConfig, state_dict, *, raw_hw: Tuple[int, int],
                  in_size: Tuple[int, int], out_size: Tuple[int, int],
-                 n_slots: Optional[int] = None, seed: int = 0, device=None):
+                 n_slots: Optional[int] = None, seed: int = 0, device=None, mesh=None):
         n_slots = n_slots or model_cfg.max_objs
+        self._esh = None if mesh is None else EngineSharding(mesh)
+        if self._esh is not None:
+            if n_slots % self._esh.n_obj:
+                raise ValueError(f"max_objs={n_slots} not divisible by the mesh 'obj' axis "
+                                 f"({self._esh.n_obj})")
+            device = self._esh.device(0, 0) if device is None else device
         self.cfg = dataclasses.replace(model_cfg, max_objs=n_slots)
         # the parameters do not depend on the slot budget: one model serves
         # every budget ``grow`` reaches, and the session hands the engine
@@ -130,11 +146,12 @@ class StreamingSession:
         mask = torch.zeros((1,) + self.out_size + (n_slots + 1,), device=self.device)
         active = torch.zeros((1, n_slots), dtype=torch.bool, device=self.device)
         mem = engine.init_memory(self.model, None, f, mask, active,
-                                 bases=self._draw(0, n_slots))
-        mem, pred, _ = engine.step(self.model, mem, f, active, self.out_size)
+                                 bases=self._draw(0, n_slots), sharding=self._esh)
+        mem, pred, _ = engine.step(self.model, mem, f, active, self.out_size,
+                                   sharding=self._esh)
         pred.cpu()
         _, pred, _ = engine.step(self.model, mem, f, active, self.out_size,
-                                 inject_mask=mask, inject_new=active)
+                                 inject_mask=mask, inject_new=active, sharding=self._esh)
         pred.cpu()
 
     def _require_started(self) -> None:
@@ -163,7 +180,7 @@ class StreamingSession:
         self._active = torch.from_numpy(active).to(self.device)
         self._mem = engine.init_memory(
             self.model, None, self._pre(frame0), torch.from_numpy(onehot[None]).to(self.device),
-            self._active, bases=bases)
+            self._active, bases=bases, sharding=self._esh)
         self._frame_count = 1
 
     def push(self, frame: np.ndarray) -> np.ndarray:
@@ -171,7 +188,7 @@ class StreamingSession:
         self._require_started()
         _check_uint8(frame, "push")
         self._mem, pred, _ = engine.step(self.model, self._mem, self._pre(frame), self._active,
-                                         self.out_size)
+                                         self.out_size, sharding=self._esh)
         self._frame_count += 1
         return pred.cpu().numpy()[0]
 
@@ -190,7 +207,8 @@ class StreamingSession:
         new_t = torch.from_numpy(new).to(self.device)
         self._mem, pred, _ = engine.step(
             self.model, self._mem, self._pre(frame), self._active, self.out_size,
-            inject_mask=torch.from_numpy(onehot[None]).to(self.device), inject_new=new_t)
+            inject_mask=torch.from_numpy(onehot[None]).to(self.device), inject_new=new_t,
+            sharding=self._esh)
         self._active = self._active | new_t
         self._frame_count += 1
         return pred.cpu().numpy()[0]
@@ -199,6 +217,9 @@ class StreamingSession:
         if n_slots <= self.n_slots:
             raise ValueError(f"grow({n_slots}) needs more than the current {self.n_slots} slots "
                              "(shrinking would discard fitted objects)")
+        if self._esh is not None and n_slots % self._esh.n_obj:
+            raise ValueError(f"n_slots={n_slots} not divisible by the mesh 'obj' axis "
+                             f"({self._esh.n_obj})")
 
     def prepare_grow(self, n_slots: int) -> None:
         """Warm ``n_slots``'s init, step and inject on zeros on a background
@@ -243,10 +264,11 @@ class StreamingSession:
                             pad(b.zita, fresh.zita))
 
         grown = torch.zeros((B, n_slots - old), dtype=torch.bool, device=self.device)
-        self._mem = em.VOSMemory(first=pad_bases(self._mem.first),
-                                 update=pad_bases(self._mem.update),
-                                 obj_seen=torch.cat([self._mem.obj_seen, grown], dim=1),
-                                 mem_count=self._mem.mem_count)
+        mem = self._mem if self._esh is None else self._esh.join_memory(self._mem, self.device)
+        mem = em.VOSMemory(first=pad_bases(mem.first), update=pad_bases(mem.update),
+                           obj_seen=torch.cat([mem.obj_seen, grown], dim=1),
+                           mem_count=mem.mem_count)
+        self._mem = mem if self._esh is None else self._esh.split_memory(mem)
         self._active = torch.cat([self._active, grown], dim=1)
         self.cfg = dataclasses.replace(self.cfg, max_objs=n_slots)
         self.n_slots = n_slots

@@ -27,6 +27,14 @@ batch's gradient and every process takes the same optimizer step. Each
 process draws the initial bases and keep masks for the global batch and
 keeps its rows (``parallel.shard_rows``), the rows its loader shard holds,
 so that N processes compute what one process computes on the global batch.
+
+Object parallelism: ``make_train_step(cfg, sharding=)`` runs the unroll per
+shard of a ``parallel.EngineSharding`` grid, every shard on the model's
+device (the port's data parallelism over devices is the processes above):
+each shard encodes its rows' frames, reads, decodes, value-encodes and
+memorizes its slots, and every shard of a grid row takes the row's
+per-object probabilities through a differentiable copy, so that the
+backward pass carries each slot's gradient back to its shard.
 """
 
 from __future__ import annotations
@@ -44,9 +52,10 @@ from torch.utils.checkpoint import checkpoint
 
 from swem_tpu_torch import parallel
 from swem_tpu_torch.config import SWEMConfig, SolverConfig, full_float32
-from swem_tpu_torch.engine import _flat_mv, _flat_qk
+from swem_tpu_torch.engine import _flat_mv, _flat_qk, _slots
 from swem_tpu_torch.models import em
-from swem_tpu_torch.models.swem import SWEM, hard_mask_from_pred, prepare_em_masks
+from swem_tpu_torch.models.swem import SWEM, aggregate, hard_mask_from_pred, prepare_em_masks
+from swem_tpu_torch.parallel.mesh import EngineSharding, make_mesh2
 from swem_tpu_torch.train.losses import make_criterion
 from swem_tpu_torch.train.solver import make_optimizer
 
@@ -63,8 +72,10 @@ class UnrolledForward(torch.nn.Module):
 
     def forward(self, frames, init_mask, valid_obj, bases: em.Bases,
                 keeps: Optional[Sequence[torch.Tensor]] = None,
-                remat: Optional[str] = None) -> torch.Tensor:
-        return _unrolled_forward(self.model, frames, init_mask, valid_obj, bases, keeps, remat)
+                remat: Optional[str] = None,
+                sharding: Optional[EngineSharding] = None) -> torch.Tensor:
+        return _unrolled_forward(self.model, frames, init_mask, valid_obj, bases, keeps, remat,
+                                 sharding)
 
 
 def data_parallel(model: SWEM) -> torch.nn.Module:
@@ -149,7 +160,8 @@ def _model_inputs(batch: Dict[str, torch.Tensor], n_slots: int):
 
 def _unrolled_forward(model: SWEM, frames, init_mask, valid_obj, bases: em.Bases,
                       keeps: Optional[Sequence[torch.Tensor]] = None,
-                      remat: Optional[str] = None) -> torch.Tensor:
+                      remat: Optional[str] = None,
+                      sharding: Optional[EngineSharding] = None) -> torch.Tensor:
     """Frame-0 init + supervised unroll over frames 1..T-1 -> stacked logits
     (B, T-1, H, W, N+1).
 
@@ -159,44 +171,74 @@ def _unrolled_forward(model: SWEM, frames, init_mask, valid_obj, bases: em.Bases
     in the backward pass, ``"block"`` each supervised frame's whole block
     (whose memorize then launches K1 again); the keep masks are inputs of
     the block, so the recomputation drops the same bases.
+
+    The unroll runs over the grid of ``sharding`` (default: one shard, the
+    whole batch and every slot), whose shards all lie on the model's
+    device: shard (i, j) runs batch rows i and object slots j, and the
+    logits come from column 0 of each row, joined over the rows.
     """
+    if sharding is None:
+        sharding = EngineSharding(make_mesh2(1, 1, devices=[model.device]))
+    elif any(r is not model for r in sharding.replicas(model).values()):
+        raise ValueError(f"the sharded train step runs every shard on the model's device "
+                         f"{model.device}; the mesh holds {sharding.devices}")
     cfg = model.cfg
     B, T, H, W, _ = frames.shape
-    out_size = (H, W)
-    active = valid_obj[:, 1:] > 0.5
+    valid = valid_obj[:, 1:]
+    active = valid > 0.5
+    rows, cols = sharding.rows(B), sharding.cols(valid.shape[1])
+    split = sharding.split_bases(bases, B)
     encode = model.encode_frame
     if remat == "encoder":
         encode = partial(checkpoint, model.encode_frame, use_reentrant=False)
 
-    qk16, _, s16, _, _, vf0 = encode(frames[:, 0])
-    mv16 = model.encode_value(frames[:, 0], init_mask, s16, vf0)
-    h, w = qk16.shape[-2:]
-    mem = em.fresh_memory(bases)
-    em_masks = prepare_em_masks(init_mask, init_mask, (h, w))
-    mem = em.memorize(mem, _flat_qk(qk16), _flat_mv(mv16), em_masks, active,
-                      n_iters=cfg.num_em_iters, tau=cfg.em_tau)
+    def memorize(mem, qk16, mv16, em_masks, i, j):
+        return em.memorize(mem, _flat_qk(qk16), _flat_mv(mv16), em_masks,
+                           active[rows[i], cols[j]], n_iters=cfg.num_em_iters, tau=cfg.em_tau)
+
+    mem = [[None] * sharding.n_obj for _ in range(sharding.n_data)]
+    for i, j, _ in sharding.shards():
+        frame, mask = frames[rows[i], 0], _slots(init_mask[rows[i]], cols[j])
+        qk16, _, s16, _, _, vf0 = encode(frame)
+        mv16 = model.encode_value(frame, mask, s16, vf0)
+        mem[i][j] = memorize(em.fresh_memory(split[i][j]), qk16, mv16,
+                             prepare_em_masks(mask, mask, tuple(qk16.shape[-2:])), i, j)
 
     def frame_block(mem, frame, keep, last: bool):
-        """One supervised frame: encode -> match -> decode (-> memorize)."""
-        qk16, qv16, s16, skip8, skip4, vf = encode(frame)
-        context = model.match(qk16, qv16, mem, train=True, keep=keep)
-        logits, pred_mask = model.decode(context, skip8, skip4, valid_obj[:, 1:], out_size)
-        if not last:
-            hard = hard_mask_from_pred(pred_mask)
-            mv16 = model.encode_value(frame, pred_mask, s16, vf)
-            em_masks = prepare_em_masks(hard, pred_mask, (h, w))
-            mem = em.memorize(mem, _flat_qk(qk16), _flat_mv(mv16), em_masks, active,
-                              n_iters=cfg.num_em_iters, tau=cfg.em_tau)
-        return mem, logits
+        """One supervised frame over the grid: each shard encodes -> matches
+        -> decodes its slots; every shard of a row aggregates the row's
+        objects (-> memorizes its slots)."""
+        keys, probs = {}, [[None] * sharding.n_obj for _ in range(sharding.n_data)]
+        for i, j, _ in sharding.shards():
+            keys[i, j] = qk16, qv16, _, skip8, skip4, _ = encode(frame[rows[i]])
+            context = model.match(qk16, qv16, mem[i][j], train=True,
+                                  keep=None if keep is None else keep[rows[i], cols[j]])
+            probs[i][j] = model.decode_objects(context, skip8, skip4, valid[rows[i], cols[j]],
+                                               (H, W))
+        mem = [list(row) for row in mem]
+        logits_rows = []
+        for i, j, d in sharding.shards():
+            logits = aggregate(sharding.gather_objects(probs[i], d))
+            if j == 0:
+                logits_rows.append(logits)
+            if not last:
+                pred_mask = torch.softmax(logits, dim=-1)
+                soft = _slots(pred_mask, cols[j])
+                qk16, _, s16, _, _, vf = keys[i, j]
+                mv16 = model.encode_value(frame[rows[i]], soft, s16, vf)
+                em_masks = prepare_em_masks(_slots(hard_mask_from_pred(pred_mask), cols[j]), soft,
+                                            tuple(qk16.shape[-2:]))
+                mem[i][j] = memorize(mem[i][j], qk16, mv16, em_masks, i, j)
+        return mem, torch.cat(logits_rows)
 
     logits_list = []
-    for i in range(1, T):
-        keep = None if keeps is None else keeps[i - 1]
+    for t in range(1, T):
+        keep = None if keeps is None else keeps[t - 1]
         if remat == "block":
-            mem, logits = checkpoint(frame_block, mem, frames[:, i], keep, i == T - 1,
+            mem, logits = checkpoint(frame_block, mem, frames[:, t], keep, t == T - 1,
                                      use_reentrant=False)
         else:
-            mem, logits = frame_block(mem, frames[:, i], keep, i == T - 1)
+            mem, logits = frame_block(mem, frames[:, t], keep, t == T - 1)
         logits_list.append(logits)
     return torch.stack(logits_list, dim=1)
 
@@ -225,9 +267,11 @@ def draw_step(model: SWEM, generator: Optional[torch.Generator], batch_size: int
     return bases, keeps
 
 
-def make_train_step(cfg: SWEMConfig, remat: Optional[str] = None) -> Callable:
+def make_train_step(cfg: SWEMConfig, remat: Optional[str] = None,
+                    sharding: Optional[EngineSharding] = None) -> Callable:
     """The train step: ``step(state, batch, generator=None, *, bases=None,
-    keeps=None) -> losses``.
+    keeps=None) -> losses``; with ``sharding``, the unroll runs over its
+    grid (``_unrolled_forward``).
 
     Updates ``state`` in place (parameters, optimizer, scheduler, step + 1)
     and returns the loss terms as detached device tensors (``p`` a host
@@ -250,7 +294,8 @@ def make_train_step(cfg: SWEMConfig, remat: Optional[str] = None) -> Callable:
             if bases is None:
                 bases, drawn = draw_step(model, generator, frames.shape[0], frames.shape[1])
                 keeps = drawn if keeps is None else keeps
-            logits = state.forward(frames, init_mask, valid_obj, bases, keeps, remat=remat)
+            logits = state.forward(frames, init_mask, valid_obj, bases, keeps, remat=remat,
+                                   sharding=sharding)
             losses = criterion(logits, label[:, 1:], state.step, valid_obj)
             state.optimizer.zero_grad(set_to_none=True)
             losses["total_loss"].backward()

@@ -373,12 +373,20 @@ def test_eval_cli_distributed_scores_on_rank0(runs):
     assert all(len(os.listdir(out / v)) == 5 for v in os.listdir(out))
 
 
-def test_obj_parallel_still_raises(tmp_path):
-    """Object parallelism is not ported: ``--obj_parallel 2`` raises before
-    any process group or weights, with or without ``--distributed``."""
+def test_obj_parallel_still_raises(tmp_path, monkeypatch):
+    """``--obj_parallel 2`` is taken, with or without ``--distributed`` (a
+    one-process group here): the CLI raises only what the run itself raises
+    (the missing checkpoint), and leaves no process group behind. Under a
+    group of several processes each evaluates on its own device alone, so
+    its object shards clamp to 1, as a JAX host with one chip does."""
     argv = ["--eval_set", "DAVIS17", "--data_root", str(tmp_path), "--resume",
             str(tmp_path / "none.pth"), "--device", "cpu", "--obj_parallel", "2"]
-    for extra in ([], ["--distributed"]):
-        with pytest.raises(NotImplementedError, match="obj_parallel"):
+    rendezvous = ["--distributed", "--coordinator", f"localhost:{free_ports(1)[0]}",
+                  "--num_processes", "1", "--process_id", "0"]
+    for extra in ([], rendezvous):
+        with pytest.raises(FileNotFoundError):
             eval_cli.main(argv + extra)
-    assert not torch.distributed.is_initialized()
+        assert not torch.distributed.is_initialized()
+    monkeypatch.setattr(parallel, "process_count", lambda: 2)
+    assert parallel.eval_devices("cpu") == [torch.device("cpu")]
+    assert parallel.derive_eval_mesh_extents(len(parallel.eval_devices("cpu")), 2, 2) == (1, 1)

@@ -143,6 +143,7 @@ def test_port_imports_no_jax():
         "import swem_tpu_torch.data.loader, swem_tpu_torch.data.transforms\n"
         "import swem_tpu_torch.data.tps, swem_tpu_torch.data.video_dataset\n"
         "import swem_tpu_torch.data.static_dataset, swem_tpu_torch.parallel\n"
+        "import swem_tpu_torch.parallel.mesh\n"
         "import swem_tpu_torch.io.export, swem_tpu_torch.export\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', "
         "'optax', 'orbax', 'swem_tpu')]\n"
@@ -150,6 +151,7 @@ def test_port_imports_no_jax():
         "        'swem_tpu_torch.eval.evaluator', 'swem_tpu_torch.eval.__main__',\n"
         "        'swem_tpu_torch.train.__main__', 'swem_tpu_torch.train.loop',\n"
         "        'swem_tpu_torch.data.factory', 'swem_tpu_torch.parallel',\n"
+        "        'swem_tpu_torch.parallel.mesh',\n"
         "        'swem_tpu_torch.io.export', 'swem_tpu_torch.export'} <= set(sys.modules)\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"

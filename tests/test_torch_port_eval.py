@@ -218,7 +218,8 @@ def test_video_batch_matches_sequential(pair, fake_davis, tmp_path, eval_set):
 
 def test_one_model_serves_every_bucket(pair, tmp_path, fake_davis):
     """Buckets 2, 4 and 8 of a 12-slot YouTube-VOS budget; the multi-scale
-    mode refuses video batches; object parallelism is not ported."""
+    mode refuses video batches; object parallelism on the CPU, one device,
+    clamps to unsharded runners."""
     _, _, port = pair
     ev = port_evaluator(port, tmp_path / "b", eval_set="DAVIS17", data_root=fake_davis,
                         max_objs=8)
@@ -228,9 +229,9 @@ def test_one_model_serves_every_bucket(pair, tmp_path, fake_davis):
     with pytest.raises(ValueError, match="video_batch"):
         Evaluator(SWEMConfig(model=port.cfg, eval=EvalConfig(**base, video_batch=2, flip=True),
                              log_dir=str(tmp_path)), port.state_dict(), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        Evaluator(SWEMConfig(model=port.cfg, eval=EvalConfig(**base, obj_parallel=2),
-                             log_dir=str(tmp_path)), port.state_dict(), device="cpu")
+    ev = Evaluator(SWEMConfig(model=port.cfg, eval=EvalConfig(**base, obj_parallel=2),
+                              log_dir=str(tmp_path)), port.state_dict(), device="cpu")
+    assert ev._obj_mesh(4) is None and ev._batch_mesh(2) == (1, None)
 
 
 @pytest.mark.parametrize("multi_scale", [False, True])
@@ -324,9 +325,10 @@ def cli_argv(root, pth, log_dir, *extra):
 def test_cli_on_the_cpu(pair, fake_davis, tmp_path, monkeypatch):
     """``python -m swem_tpu_torch.eval --device cpu`` in-process: a .pth in,
     global_results-DAVIS17.csv out. Without --device it wants CUDA and
-    raises without a card, object parallelism raises, and the multi-process
-    flags join a process group: --distributed alone the environment's (none
-    here), the three rendezvous flags only together."""
+    raises without a card, --obj_parallel 2 on the CPU's one device gives
+    the same results, and the multi-process flags join a process group:
+    --distributed alone the environment's (none here), the three rendezvous
+    flags only together."""
     # eval.py's flags have no --mdim: the decoder is the flagship's 256 wide
     cfg = dataclasses.replace(pair[2].cfg, mdim=256)
     pth = str(tmp_path / "swem.pth")
@@ -338,9 +340,8 @@ def test_cli_on_the_cpu(pair, fake_davis, tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         cli.main(cli_argv(fake_davis, pth, tmp_path / "logs2"))
-    with pytest.raises(NotImplementedError, match="obj_parallel"):
-        cli.main(cli_argv(fake_davis, pth, tmp_path / "logs3", "--device", "cpu",
-                          "--obj_parallel", "2", "--distributed"))
+    assert cli.main(cli_argv(fake_davis, pth, tmp_path / "logs3", "--device", "cpu",
+                             "--obj_parallel", "2")) == got
     for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
         monkeypatch.delenv(k, raising=False)
     for flag, match in ((["--distributed"], "RANK"), (["--num_processes", "4"], "go together"),
