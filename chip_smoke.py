@@ -201,7 +201,34 @@ Needs one CUDA device and the CUDA toolkit; imports nothing of JAX or of
    (B = 2, tamed weights) on a 1x2 grid against the unsharded step: loss
    within 1e-3 relative, the gradients' global relative L2 difference
    within 1e-2, K1 2 x (T - 1) launches.
-12. one JSON line with every kernel's numbers (``launches`` from the
+12. offline scoring, the profiling helpers and a converted optimizer state
+   (run after phase 11, inside the shape recording): (a) on the card's
+   host, where JAX is absent, ``python -m swem_tpu_torch.evaluation_method``
+   in a subprocess on phase 8's DAVIS tree and bfloat16 PNGs, its
+   ``global_results-DAVIS17.csv`` byte-equal to the one phase 8's
+   ``get_metrics`` wrote; the unsupervised task on an
+   ``Annotations_unsupervised`` copy of the ground truth with object ids
+   permuted, the ground truth's own PNGs as proposals: J&F-Mean 1.000;
+   ``python -m swem_tpu_torch.evaluation_codalab`` with the ground truth as
+   the submission: ``GlobalMean: 1.000000``. (b) phase 5's bfloat16
+   ``run_video`` (T = 10) once under ``utils.profiling.profile_trace``: K1
+   and K2 T - 1 launches each, ``device_seconds_from_trace`` of the
+   exported Chrome trace within 1% of ``device_busy_seconds`` of the same
+   run, ``log_memory`` printed, its peak equal to
+   ``torch.cuda.max_memory_allocated`` over the run. (c) flagship moments
+   from a seed (mu ~ N(0, 1e-3), nu ~ |N(0, 1e-6)|, count 7, the S3 solver
+   with a milestone at 5) through ``io.jax_import.train_snapshot`` and
+   ``save_train_checkpoint``; a float32 S3 ``Trainer`` resumed from them on
+   the card and on the CPU (plain versions), each taking one step at B = 2
+   from phase 8b's tamed weights on the same batch and bases: the moments
+   bit-equal to the inputs after the load, ``step`` and the moments placed
+   as a native checkpoint's (device, dtype), step 7, LR base_lr *
+   gamma; each side's step equal to AdamW's update computed in float64
+   from the converted state at step 8 and its own gradients, within a
+   float32 bound; card vs CPU the loss within 1e-3 and the gradients and
+   the updated parameters within 1e-2 global relative L2 (phase 8b's
+   gates), the updates' own gap printed; K1 T - 1 launches, K2 none.
+13. one JSON line with every kernel's numbers (``launches`` from the
    bfloat16 run, ``launches_f32`` from the float32 one, ``launches_runner``
    from phase 6's index runner, ``launches_session`` over phase 7's 12
    pushes, ``launches_export`` from phase 7b's replay (equal to the live
@@ -286,6 +313,8 @@ OBJ_BOXES = ((100, 220, 150, 330), (260, 400, 500, 700), (30, 150, 560, 820), (3
 # dense TF32 on the tensor cores
 PEAKS = {"sxm": (67e12, 3.35e12, 495e12), "pcie": (51e12, 2.0e12, 378e12)}
 READ_CASES = ("all valid", "update bank invalid", "object never seen")
+# phase 12: a bound on each scoring CLI's process
+SCORING_TIMEOUT_S = 120
 # a run still going after this many seconds prints every thread's stack and
 # exits with 1, inside the 1200 s that a run may take
 WATCHDOG_S = 1100
@@ -1426,7 +1455,8 @@ def eval_path(model, card: str) -> tuple:
           f" MB, wall {time.perf_counter() - t_phase:.1f} s", flush=True)
     torch.save(state, work / "weights.pth")
     return launches, {"davis": davis, "pth": work / "weights.pth",
-                      "seq": Path(seq.out_root), "vb": Path(vb.out_root)}
+                      "seq": Path(seq.out_root), "vb": Path(vb.out_root),
+                      "save_dir": Path(seq.save_dir)}
 
 
 def check_no_grad_launch() -> None:
@@ -2557,6 +2587,293 @@ def obj_cards_main() -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# phase 12: offline scoring, the profiling helpers, a converted optimizer state
+def run_module(args, label: str) -> str:
+    """``python -m <args>`` from the checkout's root; fails the run on a
+    non-zero exit, returns its stdout."""
+    import subprocess
+
+    out = subprocess.run([sys.executable, "-m"] + [str(a) for a in args], cwd=ROOT,
+                         capture_output=True, text=True, timeout=SCORING_TIMEOUT_S)
+    if out.returncode != 0:
+        fail(f"{label}: exit {out.returncode}: {out.stderr[-2000:]}")
+    return out.stdout
+
+
+def scoring_clis(eval_refs: dict, work: Path) -> str:
+    """Phase 12(a): the port's scoring CLIs on phase 8's DAVIS tree, on the
+    card's host (no JAX there): the semi-supervised CSV of phase 8's bf16
+    PNGs byte-equal to the one its ``get_metrics`` wrote; the unsupervised
+    task on the ground truth with object ids permuted, its own PNGs as
+    proposals, J&F 1.000; CodaLab with the ground truth as the submission,
+    ``GlobalMean: 1.000000``. Returns a summary."""
+    import shutil
+
+    from swem_tpu_torch.data.palette import davis_palette, load_label_mask, save_seg_mask
+
+    davis, ann = eval_refs["davis"], eval_refs["davis"] / "Annotations" / "480p"
+    res = work / "res_bf16"
+    shutil.copytree(eval_refs["seq"], res)
+    t0 = time.perf_counter()
+    run_module(["swem_tpu_torch.evaluation_method", "--davis_path", davis, "--results_path", res],
+               "evaluation_method (semi-supervised)")
+    semi_s = time.perf_counter() - t0
+    csv = "global_results-DAVIS17.csv"
+    got, want = (res / csv).read_bytes(), (eval_refs["save_dir"] / csv).read_bytes()
+    if got != want:
+        fail(f"evaluation_method: {csv} {got!r} differs from phase 8's get_metrics {want!r}")
+
+    unsup = work / "davis_unsup"
+    shutil.copytree(davis / "ImageSets", unsup / "ImageSets")
+    rng, palette = np.random.default_rng(12), davis_palette()
+    for seq in sorted(p.name for p in ann.iterdir()):
+        pngs = sorted((ann / seq).glob("*.png"))
+        n = int(load_label_mask(str(pngs[0])).max())
+        perm = np.concatenate([[0], rng.permutation(n) + 1, np.arange(n + 1, 256)]).astype(np.uint8)
+        (unsup / "Annotations_unsupervised" / "480p" / seq).mkdir(parents=True)
+        for png in pngs:
+            save_seg_mask(perm[load_label_mask(str(png))],
+                          str(unsup / "Annotations_unsupervised" / "480p" / seq / png.name),
+                          palette)
+    proposals = work / "proposals"
+    shutil.copytree(ann, proposals)
+    t0 = time.perf_counter()
+    run_module(["swem_tpu_torch.evaluation_method", "--davis_path", unsup, "--task",
+                "unsupervised", "--results_path", proposals], "evaluation_method (unsupervised)")
+    unsup_s = time.perf_counter() - t0
+    unsup_jf = read_global_csv(proposals)["J&F-Mean"]
+    if unsup_jf != 1.0:
+        fail(f"evaluation_method --task unsupervised: ground truth as proposals J&F {unsup_jf}")
+
+    codalab = work / "codalab"
+    shutil.copytree(davis / "ImageSets", codalab / "ref" / "ImageSets")
+    shutil.copytree(ann, codalab / "ref" / "Annotations" / "480p")
+    shutil.copytree(ann, codalab / "res")
+    t0 = time.perf_counter()
+    run_module(["swem_tpu_torch.evaluation_codalab", codalab, work / "codalab_out", "--set",
+                "val"], "evaluation_codalab")
+    codalab_s = time.perf_counter() - t0
+    scores = (work / "codalab_out" / "scores.txt").read_text()
+    if not scores.startswith("GlobalMean: 1.000000\n"):
+        fail(f"evaluation_codalab: ground truth as the submission scored {scores!r}")
+    return (f"evaluation_method's {csv} byte-equal to phase 8's ({got.decode().split()[1]}; "
+            f"{semi_s:.1f} s); unsupervised, ids permuted, J&F {unsup_jf:.3f} ({unsup_s:.1f} s); "
+            f"CodaLab {scores.splitlines()[0]} ({codalab_s:.1f} s)")
+
+
+def profiling_helpers(model, card: str, work: Path) -> dict:
+    """Phase 12(b): phase 5's bfloat16 ``run_video`` (T = 10) once under
+    ``utils.profiling.profile_trace``: K1 and K2 T - 1 launches, the exported
+    trace's kernel time (``device_seconds_from_trace``) within 1% of
+    ``device_busy_seconds`` of the same run, ``log_memory``'s peak equal to
+    ``torch.cuda.max_memory_allocated`` over the run. Returns the launches."""
+    import torch
+    from swem_tpu_torch import engine
+    from swem_tpu_torch.bench import synthetic_video
+    from swem_tpu_torch.utils import setup_logger
+    from swem_tpu_torch.utils.profiling import (
+        device_busy_seconds,
+        device_memory_stats,
+        device_seconds_from_trace,
+        log_memory,
+        profile_trace,
+    )
+
+    frames_np, mask_np = synthetic_video(T_VIDEO, IN_SIZE, OUT_SIZE, model.cfg.max_objs)
+    frames, init_mask = torch.from_numpy(frames_np).cuda(), torch.from_numpy(mask_np).cuda()
+    active = torch.ones((1, model.cfg.max_objs), dtype=torch.bool, device="cuda")
+    trace_dir = work / "trace"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    def profiled():
+        with profile_trace(str(trace_dir)) as prof:
+            engine.run_video(model, torch.Generator().manual_seed(1), frames, init_mask, active,
+                             OUT_SIZE)
+            torch.cuda.synchronize()
+        return prof
+
+    prof, launches = counted(profiled, T_VIDEO - 1, "profile_trace run_video (bfloat16)")
+    busy, from_trace = device_busy_seconds(prof), device_seconds_from_trace(str(trace_dir))
+    gap = abs(from_trace - busy) / busy
+    size = sum(p.stat().st_size for p in trace_dir.iterdir())
+    print(f"profile_trace (bfloat16 run_video T={T_VIDEO}) on {card}: trace {size / 2 ** 20:.1f} "
+          f"MiB; device_seconds_from_trace {from_trace * 1e3:.3f} ms, device_busy_seconds "
+          f"{busy * 1e3:.3f} ms, relative gap {gap:.2e} (gate 1e-2); launches {launches}",
+          flush=True)
+    if not gap <= 1e-2:
+        fail(f"device_seconds_from_trace {from_trace} against device_busy_seconds {busy}")
+    stats = device_memory_stats(model.device)
+    peak = torch.cuda.max_memory_allocated(model.device)
+    log_memory(setup_logger("chip_smoke_memory", None), model.device,
+               prefix="log_memory after the profiled run_video: ")
+    if stats["peak_bytes_in_use"] != peak or not 0 < stats["bytes_in_use"] <= peak \
+            or stats["bytes_limit"] < peak:
+        fail(f"device_memory_stats {stats} against max_memory_allocated {peak}")
+    return launches
+
+
+def converted_resume(train_root: Path, work: Path) -> dict:
+    """Phase 12(c): flagship optax-like moments from a seed (mu ~ N(0, 1e-3),
+    nu ~ |N(0, 1e-6)|, count 7, the S3 solver with a milestone at 5)
+    through ``io.jax_import.train_snapshot`` and ``save_train_checkpoint``;
+    a float32 S3 ``Trainer`` resumed from it on the card and on the CPU
+    (plain versions), each one step at B = 2 on the same batch and bases
+    from phase 8b's tamed weights: the moments bit-equal to the inputs
+    after the load and placed as a native checkpoint's, step 7, LR base_lr
+    * gamma, each step AdamW's from the converted state (``adamw_worst``);
+    card vs CPU the loss within 1e-3, the gradients and the updated
+    parameters within 1e-2 relative L2 (phase 8b's gates); K1 T - 1
+    launches on the card. Returns the card step's launches."""
+    import torch
+    from swem_tpu_torch.io.checkpoint import load_train_checkpoint, save_train_checkpoint
+    from swem_tpu_torch.io.jax_import import train_snapshot
+    from swem_tpu_torch.models import em
+    from swem_tpu_torch.models.swem import SWEM
+    from swem_tpu_torch.train.loop import Trainer
+    from swem_tpu_torch.train.solver import make_optimizer
+    from swem_tpu_torch.train.trainer import batch_to_device
+    from swem_tpu_torch.utils import setup_logger
+
+    ckpt, count = work / "converted", 7
+    cfg = s3_config(train_root, work / "logs", "float32", total=(5, 10),
+                    data={"batch_size": 2, "num_workers": 0}, resume=str(ckpt),
+                    from_scratch=False)
+    with torch.device("meta"):
+        names = SWEM(cfg.model, device="meta")
+    rng = np.random.default_rng(7)
+    shapes = {n: tuple(p.shape) for n, p in names.named_parameters()}
+    mu = {n: torch.from_numpy(rng.standard_normal(s, dtype=np.float32) * np.float32(1e-3))
+          for n, s in shapes.items()}
+    nu = {n: torch.from_numpy(np.abs(rng.standard_normal(s, dtype=np.float32)) * np.float32(1e-6))
+          for n, s in shapes.items()}
+    save_train_checkpoint(ckpt, train_snapshot(names, cfg.solver, tamed_weights(cfg), count,
+                                               {"mu": mu, "nu": nu}))
+    batch = loader_batch(cfg)
+    m = cfg.model
+    bases = em.init_bases(torch.Generator().manual_seed(5), 2, m.max_objs, m.keydim, m.valdim,
+                          m.num_bases)
+    lr = cfg.solver.base_lr * cfg.solver.gamma
+
+    def native_placement(device) -> tuple:
+        """(device, dtype) of ``step`` and ``exp_avg`` after a natively
+        stepped optimizer's checkpoint is loaded as ``Trainer`` loads one
+        (``load_train_checkpoint`` onto its device, ``load_state_dict``)."""
+        p = torch.nn.Parameter(torch.zeros(4, device=device))
+        opt, _ = make_optimizer(cfg.solver, [p])
+        p.grad = torch.ones_like(p)
+        opt.step()
+        torch.save(opt.state_dict(), work / "native_opt.pth")
+        fresh, _ = make_optimizer(cfg.solver, [torch.nn.Parameter(torch.zeros(4, device=device))])
+        fresh.load_state_dict(load_train_checkpoint(work / "native_opt.pth", map_location=device))
+        s = fresh.state[fresh.param_groups[0]["params"][0]]
+        return (s["step"].device, s["step"].dtype, s["exp_avg"].device, s["exp_avg"].dtype)
+
+    def resumed(label, device, k1):
+        tr = Trainer(cfg, logger=setup_logger(f"chip_smoke_resume_{label}", str(work / "logs"),
+                                              label, screen=False), device=device)
+        native = native_placement(tr.device)
+        opt, params = tr.state.optimizer, dict(tr.model.named_parameters())
+        if tr.state.step != count or abs(opt.param_groups[0]["lr"] / lr - 1) > 1e-12:
+            fail(f"{label}: resumed at step {tr.state.step}, lr {opt.param_groups[0]['lr']}")
+        for n, p in params.items():
+            s = opt.state[p]
+            if not (torch.equal(s["exp_avg"].cpu(), mu[n]) and torch.equal(s["exp_avg_sq"].cpu(),
+                                                                            nu[n])):
+                fail(f"{label}: {n}'s loaded moments differ from the converted ones")
+            placed = (s["step"].device, s["step"].dtype, s["exp_avg"].device, s["exp_avg"].dtype)
+            if placed != native or float(s["step"]) != count:
+                fail(f"{label}: {n}'s step and exp_avg {placed} (a native checkpoint's {native}), "
+                     f"step {float(s['step'])}")
+        before = {n: p.detach().double().cpu() for n, p in params.items()}
+        t0 = time.perf_counter()
+        losses, launches = counted(
+            lambda: tr.train_step(tr.state, batch_to_device(batch, tr.device),
+                                  bases=bases.to(tr.device)),
+            {"em_loop": k1, "read_memory": 0}, f"{label} resumed step")
+        wall = time.perf_counter() - t0
+        after = {n: p.detach().double().cpu() for n, p in params.items()}
+        grads = {n: p.grad.detach().double().cpu() for n, p in params.items()}
+        worst, where = adamw_worst(before, after, grads)
+        if not worst <= 1.0 or any(float(s["step"]) != count + 1 for s in opt.state.values()):
+            fail(f"{label}: the resumed step is not AdamW's from the converted moments at step "
+                 f"{count + 1} ({worst:.3f} of the float32 bound at {where})")
+        return (float(losses["total_loss"]), grads, launches, wall, native,
+                {n: after[n] - before[n] for n in params}, after, worst)
+
+    def adamw_worst(before, after, grads) -> float:
+        """The step against AdamW's update computed in float64 from the
+        converted moments (mu, nu), step count + 1, the LR past the
+        milestone and the step's own gradients: the worst element's
+        |got - want| over its float32 bound: two ulps of the stored parameter
+        (the decay's and the update's roundings, each at most one ulp of a
+        neighbouring binade) + 1e-4 of the update taken with the first
+        moment's two terms added in magnitude (float32 rounds them before
+        they cancel)."""
+        b1, b2 = cfg.solver.momentum
+        t, wd = count + 1, cfg.solver.weight_decay
+        worst = (0.0, "")
+        for n, g in grads.items():
+            m = b1 * mu[n].double() + (1 - b1) * g
+            m_abs = b1 * mu[n].double().abs() + (1 - b1) * g.abs()
+            v = b2 * nu[n].double() + (1 - b2) * g * g
+            denom = v.sqrt() / (1 - b2 ** t) ** 0.5 + 1e-8
+            want = before[n] * (1 - lr * wd) - lr / (1 - b1 ** t) * m / denom
+            w32 = want.float().abs()
+            ulp = (torch.nextafter(w32, torch.full_like(w32, float("inf"))) - w32).double()
+            bound = 2 * ulp + 1e-4 * lr / (1 - b1 ** t) * m_abs / denom
+            ratio = ((after[n] - want).abs() / bound).flatten()
+            i = int(ratio.argmax())
+            if float(ratio[i]) > worst[0]:
+                got, ref = float(after[n].flatten()[i]), float(want.flatten()[i])
+                worst = (float(ratio[i]), f"{n}[{i}]: got {got!r}, want {ref!r}, bound "
+                                          f"{float(bound.flatten()[i]):.3e}")
+        return worst
+
+    def placement(p) -> str:
+        return "step {} {}, exp_avg {} {}".format(*(str(x).replace("torch.", "") for x in p))
+
+    card = resumed("card", None, TRAIN_FRAMES - 1)
+    cpu = resumed("cpu", "cpu", 0)
+    loss_rel, grad_rel, _ = grad_difference(card[:2], cpu[:2])
+    _, param_rel, _ = grad_difference((1.0, card[6]), (1.0, cpu[6]))
+    _, upd_rel, _ = grad_difference((1.0, card[5]), (1.0, cpu[5]))
+    print(f"converted optimizer state (AdamW moments of the flagship, count {count}, milestone "
+          f"5): resumed at step {count}, lr {lr:.3e}, moments bit-equal on the card and the CPU, "
+          f"step and moments placed as a native checkpoint's (card {placement(card[4])}, CPU "
+          f"{placement(cpu[4])}); one float32 step at B=2: AdamW's update from the converted "
+          f"state at step {count + 1} in float64 within {card[7]:.3f} (card) and {cpu[7]:.3f} "
+          f"(CPU) of the float32 bound (gate 1); card vs CPU: loss {card[0]:.8f} vs "
+          f"{cpu[0]:.8f}, relative difference {loss_rel:.3e} (gate 1e-3), gradients' global "
+          f"relative L2 difference {grad_rel:.3e} (gate 1e-2), updated parameters' {param_rel:.3e} "
+          f"(gate 1e-2), the updates' {upd_rel:.3e} (not gated: Adam divides by the seeded "
+          f"second moments); card {card[3]:.1f} s, CPU {cpu[3]:.1f} s; launches {card[2]}",
+          flush=True)
+    if not loss_rel <= 1e-3 or not grad_rel <= 1e-2 or not param_rel <= 1e-2:
+        fail(f"converted resume card vs CPU: loss {loss_rel:.3e}, gradients {grad_rel:.3e}, "
+             f"parameters {param_rel:.3e}")
+    return card[2]
+
+
+def scoring_path(model, card: str, eval_refs: dict, train_root: Path) -> dict:
+    """Phase 12: (a) the scoring CLIs, (b) the profiling helpers on the
+    bfloat16 main path, (c) a converted optimizer state resumed on the card.
+    Returns the launches of (b) and (c)."""
+    import shutil
+
+    t_phase = time.perf_counter()
+    work = ROOT / "build" / "chip_smoke_phase12"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    print(f"scoring CLIs on phase 8's DAVIS tree: {scoring_clis(eval_refs, work)}", flush=True)
+    launches = {"profiled run_video": profiling_helpers(model, card, work),
+                "converted resume step": converted_resume(train_root, work)}
+    print(f"phase 12: launches {launches}; wall {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return launches
+
+
 def read_global_csv(save_dir: Path) -> dict:
     names, values = (save_dir / "global_results-DAVIS17.csv").read_text().split()
     return dict(zip(names.split(","), map(float, values.split(","))))
@@ -2658,6 +2975,7 @@ def main() -> int:
         launches_eval, eval_refs = eval_path(bf16, card)
         train = train_path(card)
         launches_obj = obj_path(bf16, card, eval_refs, train["root"])
+        scoring_path(bf16, card, eval_refs, train["root"])
         del bf16
     ddp = ddp_path(card, train, eval_refs)
     for k, v in ddp["shapes"].items():

@@ -1,7 +1,8 @@
 """YouTube-VOS evaluation videos (the port's copy of ``swem_tpu/data/ytvos_test.py``).
 
-Parses meta.json, drops the frames before the first object appears,
-derives the /16-divisible short-side inference size and builds the
+Parses the set's ``meta.json`` (or the ``dataset_file`` given), drops the
+frames before the first object appears, derives the /16-divisible
+short-side inference size and builds the
 *injection* masks of objects that appear mid-video. Each object gets a
 fixed slot, in order of first appearance, in a static (n_slots+1)-channel
 layout; ``slot_to_orig`` maps the slots back to the annotation ids when the
@@ -51,11 +52,12 @@ class YTVOSVideo:
 
 
 class YTVOSTestSet:
-    def __init__(self, root: str, short_size: int = 480, n_slots: int = 12):
+    def __init__(self, root: str, dataset_file: str = "meta.json", short_size: int = 480,
+                 n_slots: int = 12):
         self.root = root
         self.n_slots = n_slots
         self.ssize = suit_size(short_size)
-        with open(os.path.join(root, "meta.json")) as f:
+        with open(os.path.join(root, dataset_file)) as f:
             self.meta = json.load(f)["videos"]
         self.videos = list(self.meta)
 

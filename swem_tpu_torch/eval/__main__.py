@@ -8,9 +8,12 @@ the plain PyTorch path). Examples:
     python -m swem_tpu_torch.eval --eval_set YTVOS19 \\
         --data_root /data/YTVOS19/valid_all_frames --resume ckpts/swem.pth
 
-``--resume`` is a reference ``.pth``; an orbax directory is read by the JAX
-package. ``--obj_parallel N`` shards each video's object slots over up to N
-of the visible cards (one process; see ``eval/evaluator.py``).
+``--resume`` is a reference ``.pth``, the port's ``variables.pth`` or a
+checkpoint directory holding one (the port trainer's, or one that
+``scripts/orbax_to_pth.py`` wrote from the JAX trainer's orbax checkpoint);
+an orbax directory itself is read by the JAX package. ``--obj_parallel N``
+shards each video's object slots over up to N of the visible cards (one
+process; see ``eval/evaluator.py``).
 
 Distributed evaluation: each process evaluates a round-robin slice of the
 videos into the shared ``--log_dir`` and process 0 scores them:
@@ -40,7 +43,9 @@ def get_args(argv=None):
     p.add_argument("--eval_set", default="DAVIS17",
                    choices=["DAVIS16", "DAVIS17", "DAVIS17Test", "YTVOS18", "YTVOS19"])
     p.add_argument("--data_root", required=True, help="dataset root for eval_set")
-    p.add_argument("--resume", required=True, help="checkpoint: a reference torch .pth")
+    p.add_argument("--resume", required=True,
+                   help="checkpoint: a reference torch .pth, a variables.pth or a directory "
+                   "holding one")
     p.add_argument("--exp_name", default="swem")
     p.add_argument("--log_dir", default="logs")
     p.add_argument("--ssize", type=int, default=480)

@@ -10,9 +10,10 @@ an artifact replays on the device type it was exported on.
     python -m swem_tpu_torch.export --resume ckpts/swem.pth \\
         --out artifacts/swem_480p --in_size 480 864 --out_size 480 854
 
-``--resume`` is a reference ``.pth`` or the port's ``variables.pth``, as
-``python -m swem_tpu_torch.eval`` reads them; an orbax directory raises (it
-needs the JAX package). Replay with::
+``--resume`` is a reference ``.pth``, the port's ``variables.pth`` or a
+directory holding one, as ``python -m swem_tpu_torch.eval`` reads them; an
+orbax directory raises (it needs the JAX package; ``scripts/orbax_to_pth.py``
+converts it). Replay with::
 
     from swem_tpu_torch.io.export import ExportedRunner
     runner = ExportedRunner("artifacts/swem_480p"); runner.warmup()

@@ -49,8 +49,8 @@ def read_pth(path: str, expected_keys) -> Dict[str, torch.Tensor]:
     """
     if os.path.isdir(path):
         raise ValueError(f"{path} is a directory: orbax checkpoints are read by the JAX package "
-                         "(swem_tpu.registry.load_variables); convert its variables with "
-                         "swem_tpu_torch.io.jax_import.jax_to_state_dict")
+                         "(swem_tpu.registry.load_variables); convert one with "
+                         "scripts/orbax_to_pth.py, which writes variables.pth and state.pth")
     sd = torch.load(path, map_location="cpu", weights_only=True)
     if isinstance(sd, dict) and "state_dict" in sd:
         sd = sd["state_dict"]

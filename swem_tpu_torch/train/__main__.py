@@ -10,7 +10,9 @@ pretrain, 1 DAVIS, 2 YouTube-VOS, 3 DAVIS + YouTube-VOS. Examples:
 
 ``--resume`` takes a checkpoint directory written by this trainer (its
 ``state.pth``, or with ``--from_scratch`` its ``variables.pth``) or a
-reference ``.pth``; an orbax directory is read by the JAX package.
+reference ``.pth``; an orbax directory is read by the JAX package, and
+``scripts/orbax_to_pth.py`` converts it into such a directory (the
+optimizer's moments, LR schedule and step included).
 ``--from_scratch`` is needed for a stage transfer: without it the run
 resumes the earlier stage's step.
 

@@ -41,6 +41,7 @@ from swem_tpu_torch.io.checkpoint import (
     to_host,
 )
 from swem_tpu_torch.models.swem import SWEM
+from swem_tpu_torch.registry import register_trainer
 from swem_tpu_torch.train.solver import max_iter_for_stage
 from swem_tpu_torch.train.trainer import (
     batch_to_device,
@@ -55,6 +56,7 @@ from swem_tpu_torch.utils.host_io import AsyncWriter
 RNG_OFFSET = 77  # the step draws' seed is data.seed + 77, as in the JAX package
 
 
+@register_trainer("SWEM")
 class Trainer:
     """One training run of ``cfg`` on ``device`` (None: CUDA, raising without one)."""
 
@@ -107,8 +109,10 @@ class Trainer:
         """The whole run from ``<path>/state.pth`` unless ``from_scratch``;
         otherwise the weights only, from ``<path>/variables.pth`` or a
         reference ``.pth``, a single-object value encoder widened, with a
-        fresh optimizer at step 0. An orbax directory raises. Every process
-        reads the files itself, onto its own device."""
+        fresh optimizer at step 0. An orbax directory raises (the JAX
+        package reads it; ``scripts/orbax_to_pth.py`` converts it into
+        these files). Every process reads the files itself, onto its own
+        device."""
         from swem_tpu_torch import registry
 
         state_path = os.path.join(path, STATE_FILE)

@@ -1,19 +1,31 @@
-"""Logging, the training loss meter and the evaluation's frames/s meter (the
-port's copy of the parts of ``swem_tpu/utils/__init__.py`` that the
-evaluator and the trainer use)."""
+"""Logging, meters and small utilities (the port's copy of
+``swem_tpu/utils/__init__.py``): the logger, the training loss meter, the
+evaluation's frames/s meter, seeding of Python's and numpy's generators,
+padded sizes, a source snapshot and a parameter count."""
 
 from __future__ import annotations
 
 import logging
 import os
+import random
 import sys
 import time
 from collections import deque
 from typing import Optional
 
+import numpy as np
+
 
 def mkdir(path: str) -> None:
     os.makedirs(path, exist_ok=True)
+
+
+def init_random_seed(seed: int) -> None:
+    """Seed Python's and numpy's global generators, as the JAX package does.
+    The port's own draws take explicit ``torch.Generator``s and are not
+    touched."""
+    random.seed(seed)
+    np.random.seed(seed)
 
 
 def setup_logger(name: str, save_dir: Optional[str] = None, filename: str = "log",
@@ -89,3 +101,36 @@ class FrameSecondMeter:
     def end(self):
         self.fps = self.n_frames / max(self.n_seconds, 1e-9)
         return self.fps
+
+
+def pad_divide_by(shape, d: int = 16):
+    """(h, w) rounded up to multiples of ``d``."""
+    h, w = shape
+    return ((h + d - 1) // d * d, (w + d - 1) // d * d)
+
+
+def save_scripts(exp_dir: str, src_root: Optional[str] = None) -> str:
+    """Copy the package's source (``swem_tpu_torch/`` unless ``src_root``)
+    into ``<exp_dir>/scripts_snapshot``, replacing an earlier copy, so that a
+    run keeps the code it ran; returns the copy's path."""
+    import shutil
+
+    src_root = src_root or os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    dst = os.path.join(exp_dir, "scripts_snapshot")
+    if os.path.exists(dst):
+        shutil.rmtree(dst)
+    shutil.copytree(src_root, dst,
+                    ignore=shutil.ignore_patterns("__pycache__", "*.pyc", "logs", ".git"))
+    return dst
+
+
+def count_model_size(params) -> float:
+    """Parameters in millions of an ``nn.Module`` (its ``parameters()``) or
+    of a ``state_dict`` (its tensors but the batch norms' running statistics
+    and counters, which are buffers)."""
+    if hasattr(params, "parameters"):
+        tensors = list(params.parameters())
+    else:
+        tensors = [v for k, v in params.items()
+                   if not k.endswith(("running_mean", "running_var", "num_batches_tracked"))]
+    return sum(int(t.numel()) for t in tensors) / 1e6

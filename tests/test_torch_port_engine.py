@@ -129,8 +129,9 @@ def test_default_device_is_cuda(monkeypatch):
 def test_port_imports_no_jax():
     """Importing the port's engine, session, weight bridge, benchmark,
     evaluator, registry, evaluation CLI, trainer, training CLI, training
-    data modules, process-group helpers, export module and export CLI loads
-    neither JAX, flax, optax or orbax nor any module of the JAX package."""
+    data modules, process-group helpers, export module and export CLI, the
+    scoring CLIs, the profiling helpers and the utilities loads neither JAX,
+    flax, optax or orbax nor any module of the JAX package."""
     code = (
         "import sys\n"
         "import swem_tpu_torch.engine, swem_tpu_torch.io.jax_import, swem_tpu_torch.bench\n"
@@ -145,6 +146,8 @@ def test_port_imports_no_jax():
         "import swem_tpu_torch.data.static_dataset, swem_tpu_torch.parallel\n"
         "import swem_tpu_torch.parallel.mesh\n"
         "import swem_tpu_torch.io.export, swem_tpu_torch.export\n"
+        "import swem_tpu_torch.evaluation_method, swem_tpu_torch.evaluation_codalab\n"
+        "import swem_tpu_torch.utils.profiling, swem_tpu_torch.utils\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', "
         "'optax', 'orbax', 'swem_tpu')]\n"
         "assert {'swem_tpu_torch.engine', 'swem_tpu_torch.serve', 'swem_tpu_torch.registry',\n"
@@ -152,7 +155,9 @@ def test_port_imports_no_jax():
         "        'swem_tpu_torch.train.__main__', 'swem_tpu_torch.train.loop',\n"
         "        'swem_tpu_torch.data.factory', 'swem_tpu_torch.parallel',\n"
         "        'swem_tpu_torch.parallel.mesh',\n"
-        "        'swem_tpu_torch.io.export', 'swem_tpu_torch.export'} <= set(sys.modules)\n"
+        "        'swem_tpu_torch.io.export', 'swem_tpu_torch.export',\n"
+        "        'swem_tpu_torch.evaluation_method', 'swem_tpu_torch.evaluation_codalab',\n"
+        "        'swem_tpu_torch.utils.profiling', 'swem_tpu_torch.utils'} <= set(sys.modules)\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
