@@ -40,6 +40,7 @@ from swem_tpu_torch.models.swem import (
 )
 from swem_tpu_torch.ops.resize import resize
 from swem_tpu_torch.parallel.mesh import EngineSharding
+from swem_tpu_torch.utils.profiling import request, span
 
 
 def _entry_point(fn):
@@ -83,18 +84,25 @@ def init_memory(model: SWEM, generator: Optional[torch.Generator], frame0, init_
     ``VOSMemory``, or with ``sharding`` the grid of its shards, each shard
     initialized from its rows and slots of the inputs.
     """
-    cfg = model.cfg
-    if sharding is not None:
+    with span("engine.init_memory"):
+        if sharding is None:
+            return _init_memory(model, generator, frame0, init_mask, active, bases)
+        cfg = model.cfg
         if bases is None:
             bases = em.init_bases(generator, 1, init_mask.shape[-1] - 1, cfg.keydim, cfg.valdim,
                                   cfg.num_bases)
         reps = sharding.replicas(model)
         rows, cols = sharding.rows(active.shape[0]), sharding.cols(active.shape[1])
         split = sharding.split_bases(bases, active.shape[0])
-        return [[init_memory(reps[d], None, frame0[rows[i]].to(d),
-                             _slots(init_mask[rows[i]], cols[j]).to(d),
-                             active[rows[i], cols[j]].to(d), bases=split[i][j])
+        return [[_init_memory(reps[d], None, frame0[rows[i]].to(d),
+                              _slots(init_mask[rows[i]], cols[j]).to(d),
+                              active[rows[i], cols[j]].to(d), split[i][j])
                  for j, d in enumerate(sharding.grid[i])] for i in range(sharding.n_data)]
+
+
+def _init_memory(model: SWEM, generator, frame0, init_mask, active, bases):
+    """``init_memory`` of one shard."""
+    cfg = model.cfg
     qk16, _, s16, _, _ = model.encode_key(frame0)
     init_mask_in = resize(init_mask.float(), tuple(frame0.shape[1:3]), "nearest")
     mv16 = model.encode_value(frame0, init_mask_in, s16)
@@ -111,9 +119,20 @@ def init_memory(model: SWEM, generator: Optional[torch.Generator], frame0, init_
 @_entry_point
 def encode_keys_batched(model: SWEM, frames):
     """Key-encode a frame stack in one batched pass: (T,B,H,W,3) -> tuple of (T,B,...)."""
+    with span("engine.encode_keys"):
+        return _encode_keys(model, frames)
+
+
+def _encode_keys(model: SWEM, frames):
     T, B = frames.shape[:2]
     keys = model.encode_frame(frames.reshape((T * B,) + frames.shape[2:]))
     return tuple(k.reshape((T, B) + k.shape[1:]) for k in keys)
+
+
+def _per_frame(frames, keys):
+    """A chunk's frames (C,B,...) and keys (tuple of (C,B,...)) -> the C
+    frames and the C frames' key tuples."""
+    return frames.unbind(0), list(zip(*(k.unbind(0) for k in keys)))
 
 
 def _inject(pred_mask, active, inject_mask, inject_new):
@@ -142,19 +161,21 @@ def step(model: SWEM, mem, frame, active, out_size: Tuple[int, int], *,
     """
     if sharding is not None:
         reps = sharding.replicas(model)
-        frames = _split_rows(sharding, frame, active.shape[0], 0)
+        with span("engine.upload"):
+            frames = _split_rows(sharding, frame, active.shape[0], 0)
         return _step_shards(sharding, reps, mem, frames, keys, active, out_size, do_memorize,
                             inject_mask, inject_new)
     if keys is None:
-        keys = model.encode_frame(frame)
+        with span("engine.encode_keys"):
+            keys = model.encode_frame(frame)
     qk16, qv16, s16, skip8, skip4, vf = keys
-    context = model.match(qk16, qv16, mem)
-    _, pred_mask = model.decode(context, skip8, skip4, active.float(), out_size)
-
-    if inject_mask is not None:
-        pred_mask, active = _inject(pred_mask, active, inject_mask, inject_new)
-
-    pred_idx = pred_mask.argmax(dim=-1).to(torch.uint8)
+    with span("engine.read"):
+        context = model.match(qk16, qv16, mem)
+    with span("engine.decode"):
+        _, pred_mask = model.decode(context, skip8, skip4, active.float(), out_size)
+        if inject_mask is not None:
+            pred_mask, active = _inject(pred_mask, active, inject_mask, inject_new)
+        pred_idx = pred_mask.argmax(dim=-1).to(torch.uint8)
     if do_memorize:
         mem = memorize_from_pred(model, mem, frame, active, qk16, s16, vf, pred_idx, pred_mask)
     return mem, pred_idx, pred_mask
@@ -166,11 +187,12 @@ def memorize_from_pred(model: SWEM, mem, frame, active, qk16, s16, vf, pred_idx,
     shard passes its channels of ``pred_mask`` (background and its slots,
     the first being slot ``slot0 + 1`` of ``pred_idx``)."""
     cfg = model.cfg
-    soft_in = resize(pred_mask, tuple(frame.shape[1:3]), "bilinear")
-    mv16 = model.encode_value(frame, soft_in, s16, vf)
-    em_masks = prepare_em_masks_from_idx(pred_idx, soft_in, tuple(qk16.shape[-2:]), slot0)
-    return em.memorize(mem, _flat_qk(qk16), _flat_mv(mv16), em_masks, active,
-                       n_iters=cfg.num_em_iters, tau=cfg.em_tau)
+    with span("engine.memorize"):
+        soft_in = resize(pred_mask, tuple(frame.shape[1:3]), "bilinear")
+        mv16 = model.encode_value(frame, soft_in, s16, vf)
+        em_masks = prepare_em_masks_from_idx(pred_idx, soft_in, tuple(qk16.shape[-2:]), slot0)
+        return em.memorize(mem, _flat_qk(qk16), _flat_mv(mv16), em_masks, active,
+                           n_iters=cfg.num_em_iters, tau=cfg.em_tau)
 
 
 def _split_rows(sharding: EngineSharding, x, B: int, axis: int) -> list:
@@ -189,36 +211,43 @@ def _step_shards(sharding: EngineSharding, reps: dict, mem, frames, keys, active
     B, N = active.shape
     rows, cols = sharding.rows(B), sharding.cols(N)
     if keys is None:
-        keys = [[reps[d].encode_frame(frames[i][j]) for j, d in enumerate(sharding.grid[i])]
-                for i in range(sharding.n_data)]
+        with span("engine.encode_keys"):
+            keys = [[reps[d].encode_frame(frames[i][j]) for j, d in enumerate(sharding.grid[i])]
+                    for i in range(sharding.n_data)]
     probs = [[None] * sharding.n_obj for _ in range(sharding.n_data)]
     for i, j, d in sharding.shards():
         qk16, qv16, _, skip8, skip4, _ = keys[i][j]
-        context = reps[d].match(qk16, qv16, mem[i][j])
-        probs[i][j] = reps[d].decode_objects(context, skip8, skip4,
-                                             active[rows[i], cols[j]].to(d).float(), out_size)
+        with span("engine.read"):
+            context = reps[d].match(qk16, qv16, mem[i][j])
+        with span("engine.decode"):
+            probs[i][j] = reps[d].decode_objects(context, skip8, skip4,
+                                                 active[rows[i], cols[j]].to(d).float(), out_size)
     mem = [list(row) for row in mem]
     idx_rows, mask_rows = [], []
     for i, j, d in sharding.shards():
-        # the one gather per frame: every shard of row i takes its objects
-        logits = aggregate(sharding.gather_objects(probs[i], d))
-        pred_mask = torch.softmax(logits, dim=-1)
-        act = active[rows[i]].to(d)
-        if inject_mask is not None:
-            pred_mask, act = _inject(pred_mask, act, inject_mask[rows[i]].to(d),
-                                     inject_new[rows[i]].to(d))
-        pred_idx = pred_mask.argmax(dim=-1).to(torch.uint8)
+        with span("engine.decode"):
+            # the one gather per frame: every shard of row i takes its objects
+            logits = aggregate(sharding.gather_objects(probs[i], d))
+            pred_mask = torch.softmax(logits, dim=-1)
+            act = active[rows[i]].to(d)
+            if inject_mask is not None:
+                pred_mask, act = _inject(pred_mask, act, inject_mask[rows[i]].to(d),
+                                         inject_new[rows[i]].to(d))
+            pred_idx = pred_mask.argmax(dim=-1).to(torch.uint8)
+            if do_memorize:
+                slot_act, slot_mask = act[:, cols[j]], _slots(pred_mask, cols[j])
         if j == 0:
             idx_rows.append(pred_idx)
             mask_rows.append(pred_mask)
         if do_memorize:
             qk16, _, s16, _, _, vf = keys[i][j]
-            mem[i][j] = memorize_from_pred(reps[d], mem[i][j], frames[i][j], act[:, cols[j]],
-                                           qk16, s16, vf, pred_idx, _slots(pred_mask, cols[j]),
+            mem[i][j] = memorize_from_pred(reps[d], mem[i][j], frames[i][j], slot_act,
+                                           qk16, s16, vf, pred_idx, slot_mask,
                                            slot0=cols[j].start)
     home = active.device
-    return (mem, torch.cat([t.to(home) for t in idx_rows]),
-            torch.cat([t.to(home) for t in mask_rows]))
+    with span("engine.decode"):
+        return (mem, torch.cat([t.to(home) for t in idx_rows]),
+                torch.cat([t.to(home) for t in mask_rows]))
 
 
 def _to_device(x, device) -> torch.Tensor:
@@ -262,37 +291,46 @@ def run_chunk(model: SWEM, mem, frames, active, out_size: Tuple[int, int], *,
     ``sharding``: ``mem`` is a grid of shards; each shard key-encodes its
     rows of the chunk in one batched pass.
     """
+    mem, preds, active = _chunk_steps(model, mem, frames, active, out_size, final, scores,
+                                      inject_idx, inject_new, sharding)
+    return mem, torch.stack(preds), active
+
+
+def _chunk_steps(model: SWEM, mem, frames, active, out_size, final, scores, inject_idx,
+                 inject_new, sharding):
+    """``run_chunk`` with its predictions left as a list of the frames'."""
     if (inject_idx is None) != (inject_new is None):
         raise ValueError("run_chunk: inject_idx and inject_new go together")
     new_rows = None if inject_new is None else np.asarray(inject_new, dtype=bool)
-    if sharding is None:
-        keys = encode_keys_batched(model, frames)
-    else:
-        reps = sharding.replicas(model)
-        shard_frames = _split_rows(sharding, frames, active.shape[0], 1)
-        shard_keys = [[encode_keys_batched(reps[d], f) for f, d in zip(fs, sharding.grid[i])]
-                      for i, fs in enumerate(shard_frames)]
+    with span("engine.encode_keys"):
+        if sharding is None:
+            frame_list, keys = _per_frame(frames, _encode_keys(model, frames))
+        else:
+            reps = sharding.replicas(model)
+            shard_frames = [[_per_frame(f, _encode_keys(reps[d], f))
+                             for f, d in zip(fs, sharding.grid[i])]
+                            for i, fs in enumerate(_split_rows(sharding, frames,
+                                                               active.shape[0], 1))]
     preds = []
     for t in range(frames.shape[0]):
-        inject = {}
+        inject, grown = {}, active
         if new_rows is not None and new_rows[t].any():
-            inject_mask, new = _injection(inject_idx[t], new_rows[t], active.shape[-1],
-                                          frames.device)
-            inject = dict(inject_mask=inject_mask, inject_new=new)
+            with span("engine.upload"):
+                inject_mask, new = _injection(inject_idx[t], new_rows[t], active.shape[-1],
+                                              frames.device)
+                inject, grown = dict(inject_mask=inject_mask, inject_new=new), active | new
         last = final and t == frames.shape[0] - 1
         if sharding is None:
-            mem, pred_idx, pred_mask = step(model, mem, frames[t], active, out_size,
-                                            do_memorize=not last,
-                                            keys=tuple(k[t] for k in keys), **inject)
+            mem, pred_idx, pred_mask = step(model, mem, frame_list[t], active, out_size,
+                                            do_memorize=not last, keys=keys[t], **inject)
         else:
             mem, pred_idx, pred_mask = _step_shards(
-                sharding, reps, mem, [[f[t] for f in fs] for fs in shard_frames],
-                [[tuple(k[t] for k in ks) for ks in row] for row in shard_keys], active,
-                out_size, not last, **inject)
-        if inject:
-            active = active | inject["inject_new"]
+                sharding, reps, mem, [[f[t] for f, _ in row] for row in shard_frames],
+                [[k[t] for _, k in row] for row in shard_frames], active, out_size, not last,
+                **inject)
+        active = grown
         preds.append(pred_mask if scores else pred_idx)
-    return mem, torch.stack(preds), active
+    return mem, preds, active
 
 
 @_entry_point
@@ -457,28 +495,37 @@ class ChunkedVideoRunner:
                             "really intended")
         if injections and not self.injectable:
             raise ValueError("injections require ChunkedVideoRunner(injectable=True)")
-        injections = injections or {}
-        frames = np.asarray(frames)
+        with request("engine.video"):
+            return self._run(generator, frames, init_mask, active, injections or {}, bases)
+
+    def _run(self, generator, frames, init_mask, active, injections, bases):
         dev = self.model.device
-        T, B = frames.shape[:2]
-        init_mask = _to_device(init_mask, dev)
-        active = _to_device(active, dev)
-        mem = init_memory(self.model, generator, self._upload(frames[0]), init_mask, active,
-                          bases=bases, sharding=self.sharding)
+        with span("engine.upload"):
+            frames = np.asarray(frames)
+            T, B = frames.shape[:2]
+            init_mask = _to_device(init_mask, dev)
+            active = _to_device(active, dev)
+            frame0 = self._upload(frames[0])
+        mem = init_memory(self.model, generator, frame0, init_mask, active, bases=bases,
+                          sharding=self.sharding)
         preds, t = [], 1
         for size in self._sizes(T - 1):
-            inject_idx, inject_new = self._chunk_injections(injections, t, size, B,
-                                                            active.shape[-1])
-            mem, p, active = run_chunk(self.model, mem, self._upload(frames[t:t + size]), active,
-                                       self.out_size, final=t + size == T, scores=self.scores,
-                                       inject_idx=inject_idx, inject_new=inject_new,
-                                       sharding=self.sharding)
-            preds.append(p)
+            with span("engine.upload"):
+                inject_idx, inject_new = self._chunk_injections(injections, t, size, B,
+                                                                active.shape[-1])
+                chunk = self._upload(frames[t:t + size])
+            mem, p, active = _chunk_steps(self.model, mem, chunk, active, self.out_size,
+                                          t + size == T, self.scores, inject_idx, inject_new,
+                                          self.sharding)
+            preds += p
             t += size
-        if self.scores:
+        # one stack of every frame's prediction and, for indices, one fetch
+        with span("engine.fetch"):
+            if self.scores:
+                if not preds:
+                    return torch.zeros((0, B) + self.out_size + (init_mask.shape[-1],),
+                                       device=dev)
+                return torch.stack(preds)
             if not preds:
-                return torch.zeros((0, B) + self.out_size + (init_mask.shape[-1],), device=dev)
-            return torch.cat(preds)
-        if not preds:
-            return np.zeros((0, B) + self.out_size, np.uint8)
-        return torch.cat(preds).cpu().numpy()
+                return np.zeros((0, B) + self.out_size, np.uint8)
+            return torch.stack(preds).cpu().numpy()

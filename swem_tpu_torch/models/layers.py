@@ -6,7 +6,9 @@ Attribute names follow the reference SWEM implementation's torch
 
 Every module takes a compute ``dtype``, as the JAX package's flax modules
 do: convolutions and linear layers cast their input, kernel and bias to it
-per call, and the parameters stay float32.
+per call, and the parameters stay float32. While tracing, the counter
+``models.param_preps`` counts each parameter tensor prepared on a call: a
+kernel or bias cast to the compute dtype, a batch norm folded.
 """
 
 from __future__ import annotations
@@ -16,6 +18,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from swem_tpu_torch.ops.resize import resize_nchw
+from swem_tpu_torch.utils.profiling import count, tracing
+
+
+def count_casts(dtype: torch.dtype, *params) -> None:
+    """Count the parameters (None: absent) that a call casts to ``dtype``."""
+    count("models.param_preps", sum(p is not None and p.dtype != dtype for p in params))
 
 
 class Conv2d(nn.Conv2d):
@@ -27,6 +35,8 @@ class Conv2d(nn.Conv2d):
 
     def forward(self, x):
         dt = self.compute_dtype
+        if tracing():
+            count_casts(dt, self.weight, self.bias)
         return self._conv_forward(x.to(dt), self.weight.to(dt),
                                   None if self.bias is None else self.bias.to(dt))
 
@@ -40,6 +50,8 @@ class Linear(nn.Linear):
 
     def forward(self, x):
         dt = self.compute_dtype
+        if tracing():
+            count_casts(dt, self.weight, self.bias)
         return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
 
 
@@ -69,6 +81,8 @@ class FrozenBatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(features))
 
     def forward(self, x):
+        if tracing():
+            count("models.param_preps")
         # folded in float32, then cast to x's dtype for the multiply-add
         w = self.weight * torch.rsqrt(self.running_var + self.eps)
         b = self.bias - self.running_mean * w

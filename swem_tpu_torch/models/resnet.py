@@ -14,7 +14,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from swem_tpu_torch.models.layers import FrozenBatchNorm, conv1x1, conv3x3
+from swem_tpu_torch.models.layers import FrozenBatchNorm, conv1x1, conv3x3, count_casts
+from swem_tpu_torch.utils.profiling import tracing
 
 BACKBONE_FEATURES = {
     # (f16, f8, f4) channel counts
@@ -91,6 +92,8 @@ class StemConv(nn.Conv2d):
 
     def _conv(self, x, weight, with_bias: bool):
         dt = self.compute_dtype
+        if tracing():
+            count_casts(dt, weight, self.bias if with_bias else None)
         y = F.conv2d(x.to(dt), weight.to(dt), None, stride=2, padding=3)
         if with_bias and self.bias is not None:
             y = y + self.bias.to(dt)[:, None, None]

@@ -52,7 +52,7 @@ from swem_tpu_torch.models import em
 from swem_tpu_torch.models.swem import SWEM
 from swem_tpu_torch.ops.resize import resize
 from swem_tpu_torch.parallel.mesh import EngineSharding
-from swem_tpu_torch.utils.profiling import device_busy_seconds
+from swem_tpu_torch.utils.profiling import device_busy_seconds, request, span
 
 
 def _check_uint8(frame, where: str) -> None:
@@ -169,28 +169,35 @@ class StreamingSession:
         labels (0 = background, 1..n = objects; ids beyond the slot budget
         drop to background)."""
         _check_uint8(frame0, "start")
-        labels = np.asarray(init_mask)
-        onehot = to_onehot(labels, self.n_slots + 1)
-        active = np.zeros((1, self.n_slots), bool)
-        present = np.unique(labels)
-        for obj in present[(present > 0) & (present <= self.n_slots)]:
-            active[0, obj - 1] = True
-        if bases is None:
-            bases = self._draw(self.seed, self.n_slots)
-        self._active = torch.from_numpy(active).to(self.device)
-        self._mem = engine.init_memory(
-            self.model, None, self._pre(frame0), torch.from_numpy(onehot[None]).to(self.device),
-            self._active, bases=bases, sharding=self._esh)
+        with request("serve.start"):
+            with span("serve.upload"):
+                labels = np.asarray(init_mask)
+                onehot = to_onehot(labels, self.n_slots + 1)
+                active = np.zeros((1, self.n_slots), bool)
+                present = np.unique(labels)
+                for obj in present[(present > 0) & (present <= self.n_slots)]:
+                    active[0, obj - 1] = True
+                if bases is None:
+                    bases = self._draw(self.seed, self.n_slots)
+                self._active = torch.from_numpy(active).to(self.device)
+                f0 = self._pre(frame0)
+                mask = torch.from_numpy(onehot[None]).to(self.device)
+            self._mem = engine.init_memory(self.model, None, f0, mask, self._active, bases=bases,
+                                           sharding=self._esh)
         self._frame_count = 1
 
     def push(self, frame: np.ndarray) -> np.ndarray:
         """Segment one frame and update the memory. Returns (Ho,Wo) uint8."""
         self._require_started()
         _check_uint8(frame, "push")
-        self._mem, pred, _ = engine.step(self.model, self._mem, self._pre(frame), self._active,
-                                         self.out_size, sharding=self._esh)
-        self._frame_count += 1
-        return pred.cpu().numpy()[0]
+        with request("serve.push"):
+            with span("serve.upload"):
+                f = self._pre(frame)
+            self._mem, pred, _ = engine.step(self.model, self._mem, f, self._active,
+                                             self.out_size, sharding=self._esh)
+            self._frame_count += 1
+            with span("serve.fetch"):
+                return pred.cpu().numpy()[0]
 
     def add_objects(self, frame: np.ndarray, mask: np.ndarray, new_ids) -> np.ndarray:
         """Mid-stream object injection (YouTube-VOS protocol). ``mask`` is a
@@ -198,20 +205,25 @@ class StreamingSession:
         their label values. Returns (Ho,Wo) uint8."""
         self._require_started()
         _check_uint8(frame, "add_objects")
-        onehot = to_onehot(np.asarray(mask), self.n_slots + 1)
         new = np.zeros((1, self.n_slots), bool)
         for obj in new_ids:
             if not 1 <= obj <= self.n_slots:
                 raise ValueError(f"object id {obj} is outside the slot budget 1..{self.n_slots}")
             new[0, obj - 1] = True
-        new_t = torch.from_numpy(new).to(self.device)
-        self._mem, pred, _ = engine.step(
-            self.model, self._mem, self._pre(frame), self._active, self.out_size,
-            inject_mask=torch.from_numpy(onehot[None]).to(self.device), inject_new=new_t,
-            sharding=self._esh)
-        self._active = self._active | new_t
-        self._frame_count += 1
-        return pred.cpu().numpy()[0]
+        with request("serve.add_objects"):
+            with span("serve.upload"):
+                onehot = to_onehot(np.asarray(mask), self.n_slots + 1)
+                new_t = torch.from_numpy(new).to(self.device)
+                f = self._pre(frame)
+                inject_mask = torch.from_numpy(onehot[None]).to(self.device)
+                grown = self._active | new_t
+            self._mem, pred, _ = engine.step(self.model, self._mem, f, self._active,
+                                             self.out_size, inject_mask=inject_mask,
+                                             inject_new=new_t, sharding=self._esh)
+            self._active = grown
+            self._frame_count += 1
+            with span("serve.fetch"):
+                return pred.cpu().numpy()[0]
 
     def _check_growable(self, n_slots: int) -> None:
         if n_slots <= self.n_slots:

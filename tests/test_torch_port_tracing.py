@@ -1,0 +1,230 @@
+"""The port's stage spans and parameter-preparation counter
+(``swem_tpu_torch.utils.profiling``) on the CPU, with the tiny model.
+
+Without a profiler nothing is recorded. Under ``torch.profiler`` a runner
+call and a push record each stage the number of times it runs, as host ops
+of the profiler's run that are not user annotations and never nest or
+overlap; the predictions are the same bits either way; and
+``models.param_preps`` equals the count read off the module tree: in
+bf16 every kernel and bias cast on a call and every batch-norm fold, in
+float32 the folds alone.
+"""
+
+from collections import Counter
+
+import numpy as np
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from swem_tpu_torch import engine
+from swem_tpu_torch.models import layers, resnet
+from swem_tpu_torch.models.swem import SWEM
+from swem_tpu_torch.parallel import make_mesh2
+from swem_tpu_torch.serve import StreamingSession
+from swem_tpu_torch.utils import profiling
+from _torch_port_util import port_cfg, tiny_pair
+from _torch_port_util import one_torch_thread  # noqa: F401  (autouse fixture)
+from test_model import tiny_cfg
+
+HW = (64, 64)
+T, CHUNK = 7, 4  # chunks of 4 and 2 frames
+STAGES = ("engine.upload", "engine.init_memory", "engine.encode_keys", "engine.read",
+          "engine.decode", "engine.memorize", "engine.fetch", "serve.upload", "serve.fetch")
+
+
+@pytest.fixture(scope="module")
+def port():
+    return tiny_pair(seed=4)[2]
+
+
+def video(seed=0):
+    rng = np.random.default_rng(seed)
+    frames = rng.random((T, 1) + HW + (3,)).astype(np.float32)
+    mask = np.zeros((1,) + HW + (3,), np.float32)
+    mask[..., 0] = 1.0
+    for n, (y, x) in enumerate([(8, 8), (30, 34)]):
+        mask[0, y:y + 14, x:x + 14] = np.eye(3, dtype=np.float32)[n + 1]
+    return frames, mask, np.ones((1, 2), bool)
+
+
+def stream(seed=1, n=3):
+    rng = np.random.default_rng(seed)
+    labels = np.zeros(HW, np.uint8)
+    labels[8:22, 8:22] = 1
+    labels[30:44, 34:48] = 2
+    return (rng.random((n,) + HW + (3,)) * 255).astype(np.uint8), labels
+
+
+def session(model):
+    return StreamingSession(model.cfg, model.state_dict(), raw_hw=HW, in_size=HW, out_size=HW,
+                            n_slots=2, seed=3, device="cpu")
+
+
+def run_video(model, **kw):
+    frames, mask, active = video()
+    runner = engine.ChunkedVideoRunner(model, HW, chunk=CHUNK, **kw)
+    return runner(torch.Generator().manual_seed(0), frames, mask, active)
+
+
+def traced(fn):
+    """(fn's result, the profiler's run) with the record cleared first."""
+    profiling.reset()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        out = fn()
+    return out, prof
+
+
+def stage_events(prof):
+    return sorted((e for e in prof.events() if e.name in STAGES),
+                  key=lambda e: e.time_range.start)
+
+
+def calls(rec):
+    return {k: v["calls"] for k, v in rec["spans"].items()}
+
+
+def assert_flat(prof):
+    """No stage span inside or across another, on the profiler's clock."""
+    evs = stage_events(prof)
+    assert evs
+    for a, b in zip(evs, evs[1:]):
+        assert a.time_range.end <= b.time_range.start, (a.name, b.name)
+
+
+def test_tracing_follows_the_profiler():
+    assert not profiling.tracing()
+    with profile(activities=[ProfilerActivity.CPU]):
+        assert profiling.tracing()
+    assert not profiling.tracing()
+
+
+def test_untraced_calls_record_nothing(port, monkeypatch):
+    def refuse(name):
+        raise AssertionError(f"span {name} built with tracing off")
+
+    monkeypatch.setattr(profiling, "_RecordFunctionFast", refuse)
+    profiling.reset()
+    run_video(port)
+    frames, labels = stream()
+    sess = session(port)
+    sess.start(frames[0], labels)
+    sess.push(frames[1])
+    assert profiling.recorded() == {"requests": 0, "request_s": 0.0, "spans": {}, "counts": {}}
+
+
+def test_runner_call_records_each_stage(port):
+    _, prof = traced(lambda: run_video(port))
+    rec = profiling.recorded("engine.video")
+    assert rec["requests"] == 1
+    assert calls(rec) == {"engine.upload": 3, "engine.init_memory": 1,
+                          "engine.encode_keys": 2, "engine.read": T - 1,
+                          "engine.decode": T - 1, "engine.memorize": T - 2, "engine.fetch": 1}
+    # the stage spans cover the call but for Python's call overhead
+    covered = sum(v["self_s"] for v in rec["spans"].values())
+    assert 0.9 * rec["request_s"] <= covered <= rec["request_s"]
+    profiled = Counter(e.name for e in stage_events(prof))
+    assert profiled == Counter(calls(rec))
+    assert not any(e.is_user_annotation for e in stage_events(prof))
+    # requests stay out of the profiler's run
+    assert not any(e.name == "engine.video" for e in prof.events())
+    assert_flat(prof)
+
+
+def test_push_records_each_stage_once(port):
+    frames, labels = stream()
+    sess = session(port)
+
+    def start_and_push():
+        sess.start(frames[0], labels)
+        return sess.push(frames[1])
+
+    _, prof = traced(start_and_push)
+    push = profiling.recorded("serve.push")
+    assert push["requests"] == 1
+    assert calls(push) == {"serve.upload": 1, "engine.encode_keys": 1, "engine.read": 1,
+                           "engine.decode": 1, "engine.memorize": 1, "serve.fetch": 1}
+    start = profiling.recorded("serve.start")
+    assert calls(start) == {"serve.upload": 1, "engine.init_memory": 1}
+    assert not any(e.is_user_annotation for e in stage_events(prof))
+    assert_flat(prof)
+
+
+def test_object_sharded_runner_keeps_the_stages_flat(port):
+    mesh = make_mesh2(1, 2, devices=["cpu", "cpu"])
+    _, prof = traced(lambda: run_video(port, mesh=mesh))
+    got = calls(profiling.recorded("engine.video"))
+    # per frame: each of the 2 shards reads and decodes its objects, then
+    # aggregates the gathered ones, and one more decode span joins the rows
+    assert got["engine.read"] == 2 * (T - 1)
+    assert got["engine.decode"] == 5 * (T - 1)
+    assert got["engine.memorize"] == 2 * (T - 2)
+    assert got["engine.encode_keys"] == 2 and got["engine.init_memory"] == 1
+    assert_flat(prof)
+
+
+def test_predictions_are_the_same_bits_traced(port):
+    off = run_video(port)
+    on, _ = traced(lambda: run_video(port))
+    np.testing.assert_array_equal(on, off)
+    frames, labels = stream(n=4)
+    maps = []
+    for trace in (False, True):
+        sess = session(port)
+        sess.start(frames[0], labels)
+        push = lambda: [sess.push(f) for f in frames[1:]]  # noqa: E731
+        maps.append(traced(push)[0] if trace else push())
+    np.testing.assert_array_equal(np.stack(maps[0]), np.stack(maps[1]))
+
+
+def module_tree_preps(model, fn) -> int:
+    """Parameter tensors that ``fn`` prepares, read off the module tree: at a
+    compute dtype other than the parameters' float32, every kernel and bias
+    of each conv and linear call (the stem conv's bias where its call adds
+    it), and one fold per batch-norm call."""
+    n = [0]
+    cast = model.cfg.dtype != "float32"
+    hooks, stems = [], []
+
+    def add(k):
+        n[0] += k
+
+    for m in model.modules():
+        if isinstance(m, layers.FrozenBatchNorm):
+            hooks.append(m.register_forward_pre_hook(lambda *_: add(1)))
+        elif isinstance(m, (layers.Conv2d, layers.Linear)) and cast:
+            k = 1 + (m.bias is not None)
+            hooks.append(m.register_forward_pre_hook(lambda *_, k=k: add(k)))
+        elif isinstance(m, resnet.StemConv) and cast:
+            def conv(x, w, with_bias, m=m, orig=m._conv):
+                add(1 + (with_bias and m.bias is not None))
+                return orig(x, w, with_bias)
+
+            m._conv = conv
+            stems.append(m)
+    try:
+        fn()
+    finally:
+        for h in hooks:
+            h.remove()
+        for m in stems:
+            del m._conv
+    return n[0]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_param_preps_equal_the_module_tree(dtype):
+    model = SWEM(port_cfg(tiny_cfg(dtype=dtype)), device="cpu").init_weights(5)
+    frames, labels = stream()
+    sess = session(model)
+    sess.start(frames[0], labels)
+    want = module_tree_preps(sess.model, lambda: traced(lambda: sess.push(frames[1])))
+    got = profiling.recorded("serve.push")["counts"]["models.param_preps"]
+    assert got == want > 0
+
+
+def test_reset_empties_the_record(port):
+    traced(lambda: run_video(port))
+    assert profiling.recorded()["spans"]
+    profiling.reset()
+    assert profiling.recorded() == {"requests": 0, "request_s": 0.0, "spans": {}, "counts": {}}
