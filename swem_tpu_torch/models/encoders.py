@@ -24,11 +24,25 @@ IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 
 
-def normalize_image(frame: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+def imagenet_constants(device: torch.device, dtype: torch.dtype):
+    """The normalization's (mean, std) on ``device``, rounded to ``dtype``."""
+    return (torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=device).to(dtype),
+            torch.tensor(IMAGENET_STD, dtype=torch.float32, device=device).to(dtype))
+
+
+def normalize_image(frame: torch.Tensor, dtype: torch.dtype, kept: dict) -> torch.Tensor:
     """(..., H, W, 3) RGB in [0, 1] -> ImageNet-normalized (..., 3, H, W) in
-    ``dtype``, the float32 constants rounded to it."""
-    mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=frame.device).to(dtype)
-    std = torch.tensor(IMAGENET_STD, dtype=torch.float32, device=frame.device).to(dtype)
+    ``dtype``, the float32 constants rounded to it. The constants are made
+    once per device and dtype and kept in ``kept``, a dict of the caller's,
+    but made per call while ``torch.compile`` or ``torch.export`` traces."""
+    if torch.compiler.is_compiling():
+        mean, std = imagenet_constants(frame.device, dtype)
+    else:
+        key = (frame.device, dtype)
+        if key not in kept:
+            with torch.inference_mode(False), torch.no_grad():
+                kept[key] = imagenet_constants(frame.device, dtype)
+        mean, std = kept[key]
     return ((frame.to(dtype) - mean) / std).movedim(-1, -3)
 
 
@@ -44,9 +58,11 @@ class KeyEncoder(nn.Module):
         self.conv1 = StemConv(3, bias=False, dtype=dtype)
         self.bn1 = FrozenBatchNorm(64)
         self.res2, self.layer2, self.layer3 = make_stages(backbone, bias=False, dtype=dtype)
+        self._imagenet = {}
 
     def forward(self, frame):
-        x = stem_rest(self.bn1, self.conv1(normalize_image(frame, self.compute_dtype)))
+        x = stem_rest(self.bn1, self.conv1(normalize_image(frame, self.compute_dtype,
+                                                           self._imagenet)))
         return run_stages(x, (self.res2, self.layer2, self.layer3))
 
 
@@ -66,10 +82,11 @@ class ValueEncoder(nn.Module):
         self.bn1 = FrozenBatchNorm(64)
         self.layer1, self.layer2, self.layer3 = make_stages("resnet18", bias=True, dtype=dtype)
         self.fuser = FeatureFusionBlock(BACKBONE_FEATURES["resnet18"][0] + key_f16, valdim, dtype)
+        self._imagenet = {}
 
     def frame_stem(self, frame):
         """Frame slice of the stem conv: (B,H,W,3) -> (B,64,H/2,W/2)."""
-        return self.conv1.frame_part(normalize_image(frame, self.compute_dtype))
+        return self.conv1.frame_part(normalize_image(frame, self.compute_dtype, self._imagenet))
 
     def forward(self, frame, key_f16, mask_fg, mask_others=None, frame_stem=None):
         """frame (B,H,W,3); key_f16 (B,Cf,h16,w16); masks (B,1,H,W).
@@ -81,7 +98,8 @@ class ValueEncoder(nn.Module):
         masks = mask_fg.to(dt) if self.single_object else torch.cat(
             [mask_fg.to(dt), mask_others.to(dt)], dim=1)
         if frame_stem is None:
-            conv1_out = self.conv1(torch.cat([normalize_image(frame, dt), masks], dim=1))
+            conv1_out = self.conv1(torch.cat([normalize_image(frame, dt, self._imagenet), masks],
+                                             dim=1))
         else:
             conv1_out = frame_stem + self.conv1.mask_part(masks)
         f16, _, _ = run_stages(stem_rest(self.bn1, conv1_out),

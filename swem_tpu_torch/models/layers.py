@@ -5,13 +5,19 @@ Attribute names follow the reference SWEM implementation's torch
 ``downsample``), so ``io/jax_import.py`` maps weights by renaming alone.
 
 Every module takes a compute ``dtype``, as the JAX package's flax modules
-do: convolutions and linear layers cast their input, kernel and bias to it
-per call, and the parameters stay float32. While tracing, the counter
-``models.param_preps`` counts each parameter tensor prepared on a call: a
-kernel or bias cast to the compute dtype, a batch norm folded.
+do: convolutions and linear layers cast their input, kernel and bias to it,
+and the parameters stay float32. The prepared parameters (a kernel or bias
+cast to the compute dtype, a batch norm folded) are kept across calls
+(``prepared``) wherever autograd and ``torch.compile``/``torch.export``
+need not see the preparation. While tracing, the counter
+``models.param_preps`` counts each parameter tensor prepared on a call (a
+miss), ``models.param_cache_hits`` each one reused.
 """
 
 from __future__ import annotations
+
+from operator import attrgetter, is_
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -20,10 +26,71 @@ from torch import nn
 from swem_tpu_torch.ops.resize import resize_nchw
 from swem_tpu_torch.utils.profiling import count, tracing
 
+PREPS, HITS = "models.param_preps", "models.param_cache_hits"
+_version = attrgetter("_version")
 
-def count_casts(dtype: torch.dtype, *params) -> None:
-    """Count the parameters (None: absent) that a call casts to ``dtype``."""
-    count("models.param_preps", sum(p is not None and p.dtype != dtype for p in params))
+
+def keeps_prepared(sources) -> bool:
+    """Whether tensors prepared from ``sources`` may be kept across calls:
+    not while ``torch.compile`` or ``torch.export`` traces (the parameters
+    stay inputs of the program, ``io/export.py``), nor where autograd
+    records the preparation (gradients on and a source that requires them)."""
+    if torch.compiler.is_compiling():
+        return False
+    return not torch.is_grad_enabled() or not any(t.requires_grad for t in sources)
+
+
+def prepared(store: Dict[str, tuple], slot: str, dtype: torch.dtype, sources: tuple,
+             make: Callable[[], tuple], n: int) -> tuple:
+    """``make()``'s tensors, prepared from ``sources`` for compute dtype
+    ``dtype``, kept in ``store[slot]`` and reused while the sources are the
+    same tensors, on the same device, at the same versions and data
+    pointers. ``n`` is the count of parameter tensors a call prepares or
+    reuses, for the counters.
+
+    An in-place update (``load_state_dict``, an optimizer step) bumps a
+    version, ``.to(device)`` moves the data, and a copied model holds other
+    tensors: each misses and prepares again. A kept tensor is made outside
+    ``torch.inference_mode`` and without gradients, so it may meet autograd
+    later. Where ``keeps_prepared`` says no, every call prepares (the path
+    of training with gradients on, and of an export trace)."""
+    if keeps_prepared(sources):
+        try:
+            stamp = (dtype, sources[0].device, *map(_version, sources),
+                     *map(torch.Tensor.data_ptr, sources))
+        except RuntimeError:  # an inference tensor tracks no version: prepare per call
+            stamp = None
+        if stamp is not None:
+            entry = store.get(slot)
+            if entry is not None and entry[1] == stamp and all(map(is_, entry[0], sources)):
+                if tracing():
+                    count(HITS, n)
+                return entry[2]
+            if tracing():
+                count(PREPS, n)
+            with torch.inference_mode(False), torch.no_grad():
+                out = make()
+            store[slot] = (sources, stamp, out)
+            return out
+    if tracing():
+        count(PREPS, n)
+    return make()
+
+
+def cast_params(store: Dict[str, tuple], slot: str, dtype: torch.dtype, weight: torch.Tensor,
+                bias: Optional[torch.Tensor], cols: Optional[slice] = None):
+    """``weight`` (its input channels ``cols``, when given) and ``bias``
+    (None: absent) cast to ``dtype``, kept across calls; parameters already
+    in ``dtype`` are used as they are."""
+    if weight.dtype == dtype and (bias is None or bias.dtype == dtype):
+        return (weight if cols is None else weight[:, cols]), bias
+
+    def make():
+        w = weight if cols is None else weight[:, cols]
+        return w.to(dtype), (None if bias is None else bias.to(dtype))
+
+    sources = (weight,) if bias is None else (weight, bias)
+    return prepared(store, slot, dtype, sources, make, len(sources))
 
 
 class Conv2d(nn.Conv2d):
@@ -32,13 +99,12 @@ class Conv2d(nn.Conv2d):
     def __init__(self, *args, compute_dtype: torch.dtype = torch.float32, **kwargs):
         super().__init__(*args, **kwargs)
         self.compute_dtype = compute_dtype
+        self._prepared = {}
 
     def forward(self, x):
         dt = self.compute_dtype
-        if tracing():
-            count_casts(dt, self.weight, self.bias)
-        return self._conv_forward(x.to(dt), self.weight.to(dt),
-                                  None if self.bias is None else self.bias.to(dt))
+        w, b = cast_params(self._prepared, "params", dt, self.weight, self.bias)
+        return self._conv_forward(x.to(dt), w, b)
 
 
 class Linear(nn.Linear):
@@ -47,12 +113,12 @@ class Linear(nn.Linear):
     def __init__(self, cin: int, cout: int, compute_dtype: torch.dtype = torch.float32):
         super().__init__(cin, cout)
         self.compute_dtype = compute_dtype
+        self._prepared = {}
 
     def forward(self, x):
         dt = self.compute_dtype
-        if tracing():
-            count_casts(dt, self.weight, self.bias)
-        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+        w, b = cast_params(self._prepared, "params", dt, self.weight, self.bias)
+        return F.linear(x.to(dt), w, b)
 
 
 def conv3x3(cin: int, cout: int, stride: int = 1, bias: bool = True,
@@ -69,7 +135,8 @@ class FrozenBatchNorm(nn.Module):
     """BatchNorm permanently in inference mode, folded to one multiply-add.
 
     ``weight``/``bias`` are parameters, ``running_mean``/``running_var``
-    buffers (no ``num_batches_tracked``: the statistics never update).
+    buffers (no ``num_batches_tracked``: the statistics never update). The
+    fold, cast to the input's dtype, is kept across calls (``prepared``).
     """
 
     def __init__(self, features: int, eps: float = 1e-5):
@@ -79,14 +146,20 @@ class FrozenBatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
+        self._prepared = {}
 
-    def forward(self, x):
-        if tracing():
-            count("models.param_preps")
-        # folded in float32, then cast to x's dtype for the multiply-add
+    def _fold(self, dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Scale and shift (C, 1, 1) in ``dtype``, folded in float32."""
         w = self.weight * torch.rsqrt(self.running_var + self.eps)
         b = self.bias - self.running_mean * w
-        return x * w.to(x.dtype)[:, None, None] + b.to(x.dtype)[:, None, None]
+        return w.to(dtype)[:, None, None], b.to(dtype)[:, None, None]
+
+    def forward(self, x):
+        dt = x.dtype
+        w, b = prepared(self._prepared, "fold", dt,
+                        (self.weight, self.bias, self.running_mean, self.running_var),
+                        lambda: self._fold(dt), 1)
+        return x * w + b
 
 
 class ResBlock(nn.Module):

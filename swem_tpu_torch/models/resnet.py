@@ -3,7 +3,8 @@
 Blocks follow torchvision's attribute names (``conv1``/``bn1``/...,
 ``downsample.0``/``downsample.1``). The key trunk has no conv biases; the
 value trunk (mod_resnet) has a bias on every conv. Every conv computes in
-the trunk's ``dtype``; the batch norms fold in float32 and cast to it.
+the trunk's ``dtype``; the batch norms fold in float32 and cast to it. The
+cast kernels and the folds are kept across calls (``layers.prepared``).
 """
 
 from __future__ import annotations
@@ -14,8 +15,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from swem_tpu_torch.models.layers import FrozenBatchNorm, conv1x1, conv3x3, count_casts
-from swem_tpu_torch.utils.profiling import tracing
+from swem_tpu_torch.models.layers import FrozenBatchNorm, cast_params, conv1x1, conv3x3
 
 BACKBONE_FEATURES = {
     # (f16, f8, f4) channel counts
@@ -83,30 +83,34 @@ class StemConv(nn.Conv2d):
     channels, no bias) is the only stem work left per object. The split is
     exact up to one partial-sum reordering. Input, kernel and bias are cast
     to ``dtype``, and the bias is added after the product, as in the JAX
-    package's ``StemConv._conv``.
+    package's ``StemConv._conv``. Each part keeps its cast kernel slice and
+    bias across calls.
     """
+
+    PARTS = {"whole": None, "frame": slice(None, 3), "mask": slice(3, None)}
 
     def __init__(self, in_channels: int, bias: bool, dtype: torch.dtype = torch.float32):
         super().__init__(in_channels, 64, 7, stride=2, padding=3, bias=bias)
         self.compute_dtype = dtype
+        self._prepared = {}
 
-    def _conv(self, x, weight, with_bias: bool):
+    def _conv(self, x, part: str, with_bias: bool):
         dt = self.compute_dtype
-        if tracing():
-            count_casts(dt, weight, self.bias if with_bias else None)
-        y = F.conv2d(x.to(dt), weight.to(dt), None, stride=2, padding=3)
-        if with_bias and self.bias is not None:
-            y = y + self.bias.to(dt)[:, None, None]
+        weight, bias = cast_params(self._prepared, part, dt, self.weight,
+                                   self.bias if with_bias else None, self.PARTS[part])
+        y = F.conv2d(x.to(dt), weight, None, stride=2, padding=3)
+        if bias is not None:
+            y = y + bias[:, None, None]
         return y
 
     def forward(self, x):
-        return self._conv(x, self.weight, True)
+        return self._conv(x, "whole", True)
 
     def frame_part(self, frame):
-        return self._conv(frame, self.weight[:, :3], True)
+        return self._conv(frame, "frame", True)
 
     def mask_part(self, masks):
-        return self._conv(masks, self.weight[:, 3:], False)
+        return self._conv(masks, "mask", False)
 
 
 def make_stages(backbone: str, bias: bool, dtype: torch.dtype = torch.float32

@@ -48,8 +48,9 @@ class SWEM(nn.Module):
     """Encoders + EM fusion + decoder, placed on ``device`` (None = CUDA).
 
     The parameters are float32 at either compute dtype, so ``state_dict``
-    is the same; each conv casts its kernel to ``cfg.dtype`` per call
-    (round to nearest), as flax does.
+    is the same; each conv casts its kernel to ``cfg.dtype`` (round to
+    nearest), as flax does, and keeps the cast across calls where no
+    gradient or export trace needs it made per call (``layers.prepared``).
     """
 
     def __init__(self, cfg: ModelConfig = ModelConfig(), device=None):

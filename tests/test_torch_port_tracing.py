@@ -4,10 +4,12 @@
 Without a profiler nothing is recorded. Under ``torch.profiler`` a runner
 call and a push record each stage the number of times it runs, as host ops
 of the profiler's run that are not user annotations and never nest or
-overlap; the predictions are the same bits either way; and
-``models.param_preps`` equals the count read off the module tree: in
-bf16 every kernel and bias cast on a call and every batch-norm fold, in
-float32 the folds alone.
+overlap; the predictions are the same bits either way; and the count read
+off the module tree (in bf16 every kernel and bias cast and every
+batch-norm fold, in float32 the folds alone) splits, on the first push
+after the weights change, into ``models.param_preps`` (each module's first
+call) and ``models.param_cache_hits`` (its repeats), and is all
+``models.param_cache_hits`` on the next push, which prepares nothing.
 """
 
 from collections import Counter
@@ -177,28 +179,32 @@ def test_predictions_are_the_same_bits_traced(port):
     np.testing.assert_array_equal(np.stack(maps[0]), np.stack(maps[1]))
 
 
-def module_tree_preps(model, fn) -> int:
-    """Parameter tensors that ``fn`` prepares, read off the module tree: at a
-    compute dtype other than the parameters' float32, every kernel and bias
-    of each conv and linear call (the stem conv's bias where its call adds
-    it), and one fold per batch-norm call."""
-    n = [0]
+def module_tree_preps(model, fn):
+    """Parameter tensors that ``fn`` prepares or reuses, read off the module
+    tree: at a compute dtype other than the parameters' float32, every
+    kernel and bias of each conv and linear call (the stem conv's bias where
+    its call adds it), and one fold per batch-norm call. Returns (that
+    count, the part of it from each module's (and stem part's) first call)."""
+    n, first, seen = [0], [0], set()
     cast = model.cfg.dtype != "float32"
     hooks, stems = [], []
 
-    def add(k):
+    def add(k, key):
         n[0] += k
+        if key not in seen:
+            seen.add(key)
+            first[0] += k
 
     for m in model.modules():
         if isinstance(m, layers.FrozenBatchNorm):
-            hooks.append(m.register_forward_pre_hook(lambda *_: add(1)))
+            hooks.append(m.register_forward_pre_hook(lambda m, _: add(1, m)))
         elif isinstance(m, (layers.Conv2d, layers.Linear)) and cast:
             k = 1 + (m.bias is not None)
-            hooks.append(m.register_forward_pre_hook(lambda *_, k=k: add(k)))
+            hooks.append(m.register_forward_pre_hook(lambda m, _, k=k: add(k, m)))
         elif isinstance(m, resnet.StemConv) and cast:
-            def conv(x, w, with_bias, m=m, orig=m._conv):
-                add(1 + (with_bias and m.bias is not None))
-                return orig(x, w, with_bias)
+            def conv(x, part, with_bias, m=m, orig=m._conv):
+                add(1 + (with_bias and m.bias is not None), (m, part))
+                return orig(x, part, with_bias)
 
             m._conv = conv
             stems.append(m)
@@ -209,18 +215,29 @@ def module_tree_preps(model, fn) -> int:
             h.remove()
         for m in stems:
             del m._conv
-    return n[0]
+    return n[0], first[0]
 
 
+@pytest.mark.parametrize("warm", [False, True], ids=["cold", "warm"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_param_preps_equal_the_module_tree(dtype):
+def test_param_preps_equal_the_module_tree(dtype, warm):
+    """Cold: the first push after ``load_state_dict`` prepares each module's
+    parameter tensors on its first call and reuses them on the next ones
+    (the channel gate's MLP runs twice). Warm: the next push prepares none
+    and reuses them all."""
     model = SWEM(port_cfg(tiny_cfg(dtype=dtype)), device="cpu").init_weights(5)
     frames, labels = stream()
     sess = session(model)
     sess.start(frames[0], labels)
-    want = module_tree_preps(sess.model, lambda: traced(lambda: sess.push(frames[1])))
-    got = profiling.recorded("serve.push")["counts"]["models.param_preps"]
-    assert got == want > 0
+    sess.model.load_state_dict(model.state_dict())  # new versions: every kept tensor misses
+    if warm:
+        sess.push(frames[1])
+    want, first = module_tree_preps(sess.model,
+                                    lambda: traced(lambda: sess.push(frames[1 + warm])))
+    counts = profiling.recorded("serve.push")["counts"]
+    got = counts.get("models.param_preps", 0), counts.get("models.param_cache_hits", 0)
+    assert got == ((0, want) if warm else (first, want - first))
+    assert want >= first > 0
 
 
 def test_reset_empties_the_record(port):
