@@ -40,7 +40,7 @@ from swem_tpu_torch.models.swem import (
 )
 from swem_tpu_torch.ops.resize import resize
 from swem_tpu_torch.parallel.mesh import EngineSharding
-from swem_tpu_torch.utils.profiling import request, span
+from swem_tpu_torch.utils.profiling import count, request, span, tracing
 
 
 def _entry_point(fn):
@@ -173,9 +173,12 @@ def step(model: SWEM, mem, frame, active, out_size: Tuple[int, int], *,
         context = model.match(qk16, qv16, mem)
     with span("engine.decode"):
         _, pred_mask = model.decode(context, skip8, skip4, active.float(), out_size)
-        if inject_mask is not None:
+        if inject_mask is None:
+            pred_idx = pred_mask.argmax(dim=-1).to(torch.uint8)
+    if inject_mask is not None:
+        with span("engine.inject"):
             pred_mask, active = _inject(pred_mask, active, inject_mask, inject_new)
-        pred_idx = pred_mask.argmax(dim=-1).to(torch.uint8)
+            pred_idx = pred_mask.argmax(dim=-1).to(torch.uint8)
     if do_memorize:
         mem = memorize_from_pred(model, mem, frame, active, qk16, s16, vf, pred_idx, pred_mask)
     return mem, pred_idx, pred_mask
@@ -230,19 +233,20 @@ def _step_shards(sharding: EngineSharding, reps: dict, mem, frames, keys, active
             logits = aggregate(sharding.gather_objects(probs[i], d))
             pred_mask = torch.softmax(logits, dim=-1)
             act = active[rows[i]].to(d)
-            if inject_mask is not None:
+            if inject_mask is None:
+                pred_idx = pred_mask.argmax(dim=-1).to(torch.uint8)
+        if inject_mask is not None:
+            with span("engine.inject"):
                 pred_mask, act = _inject(pred_mask, act, inject_mask[rows[i]].to(d),
                                          inject_new[rows[i]].to(d))
-            pred_idx = pred_mask.argmax(dim=-1).to(torch.uint8)
-            if do_memorize:
-                slot_act, slot_mask = act[:, cols[j]], _slots(pred_mask, cols[j])
+                pred_idx = pred_mask.argmax(dim=-1).to(torch.uint8)
         if j == 0:
             idx_rows.append(pred_idx)
             mask_rows.append(pred_mask)
         if do_memorize:
             qk16, _, s16, _, _, vf = keys[i][j]
-            mem[i][j] = memorize_from_pred(reps[d], mem[i][j], frames[i][j], slot_act,
-                                           qk16, s16, vf, pred_idx, slot_mask,
+            mem[i][j] = memorize_from_pred(reps[d], mem[i][j], frames[i][j], act[:, cols[j]],
+                                           qk16, s16, vf, pred_idx, _slots(pred_mask, cols[j]),
                                            slot0=cols[j].start)
     home = active.device
     with span("engine.decode"):
@@ -315,7 +319,7 @@ def _chunk_steps(model: SWEM, mem, frames, active, out_size, final, scores, inje
     for t in range(frames.shape[0]):
         inject, grown = {}, active
         if new_rows is not None and new_rows[t].any():
-            with span("engine.upload"):
+            with span("engine.inject"):
                 inject_mask, new = _injection(inject_idx[t], new_rows[t], active.shape[-1],
                                               frames.device)
                 inject, grown = dict(inject_mask=inject_mask, inject_new=new), active | new
@@ -386,6 +390,22 @@ def ladder_sizes(chunk: int):
         sizes.append(s)
         s //= 2
     return sizes
+
+
+def _count_slots(active, injections, T: int) -> None:
+    """The slot counters of a runner call, from its host inputs: per frame
+    1..T-1, ``engine.slots`` (B x N stepped), ``engine.active_slots`` (those
+    live after the frame's injection) and ``engine.injected`` (slots
+    injected)."""
+    live = np.array(active.cpu() if isinstance(active, torch.Tensor) else active, dtype=bool)
+    for t in range(1, T):
+        if t in injections:
+            new = np.asarray(injections[t][1], dtype=bool)
+            if new.any():
+                count("engine.injected", int(new.sum()))
+                live = live | new
+        count("engine.slots", live.size)
+        count("engine.active_slots", int(live.sum()))
 
 
 class ChunkedVideoRunner:
@@ -470,11 +490,12 @@ class ChunkedVideoRunner:
         frames = [j for j in range(size) if t + j in injections]
         if not frames:
             return None, None
-        idx = np.zeros((size, batch) + self.out_size, np.uint8)
-        new = np.zeros((size, batch, n_slots), bool)
-        for j in frames:
-            idx[j], new[j] = injections[t + j]
-        return idx, new
+        with span("engine.inject"):
+            idx = np.zeros((size, batch) + self.out_size, np.uint8)
+            new = np.zeros((size, batch, n_slots), bool)
+            for j in frames:
+                idx[j], new[j] = injections[t + j]
+            return idx, new
 
     @_entry_point
     def __call__(self, generator: Optional[torch.Generator], frames, init_mask, active,
@@ -504,15 +525,17 @@ class ChunkedVideoRunner:
             frames = np.asarray(frames)
             T, B = frames.shape[:2]
             init_mask = _to_device(init_mask, dev)
+            if tracing():
+                _count_slots(active, injections, T)
             active = _to_device(active, dev)
             frame0 = self._upload(frames[0])
         mem = init_memory(self.model, generator, frame0, init_mask, active, bases=bases,
                           sharding=self.sharding)
         preds, t = [], 1
         for size in self._sizes(T - 1):
+            inject_idx, inject_new = self._chunk_injections(injections, t, size, B,
+                                                            active.shape[-1])
             with span("engine.upload"):
-                inject_idx, inject_new = self._chunk_injections(injections, t, size, B,
-                                                                active.shape[-1])
                 chunk = self._upload(frames[t:t + size])
             mem, p, active = _chunk_steps(self.model, mem, chunk, active, self.out_size,
                                           t + size == T, self.scores, inject_idx, inject_new,

@@ -2,7 +2,9 @@
 (``swem_tpu_torch.utils.profiling``) on the CPU, with the tiny model.
 
 Without a profiler nothing is recorded. Under ``torch.profiler`` a runner
-call and a push record each stage the number of times it runs, as host ops
+call and a push record each stage the number of times it runs (an
+injecting runner ``engine.inject`` too, and every runner call the slot
+counters: slots stepped, slots live, objects injected), as host ops
 of the profiler's run that are not user annotations and never nest or
 overlap; the predictions are the same bits either way; and the count read
 off the module tree (in bf16 every kernel and bias cast and every
@@ -32,7 +34,9 @@ from test_model import tiny_cfg
 HW = (64, 64)
 T, CHUNK = 7, 4  # chunks of 4 and 2 frames
 STAGES = ("engine.upload", "engine.init_memory", "engine.encode_keys", "engine.read",
-          "engine.decode", "engine.memorize", "engine.fetch", "serve.upload", "serve.fetch")
+          "engine.decode", "engine.inject", "engine.memorize", "engine.fetch", "serve.upload",
+          "serve.fetch")
+SLOTS = ("engine.slots", "engine.active_slots", "engine.injected")
 
 
 @pytest.fixture(scope="module")
@@ -67,6 +71,29 @@ def run_video(model, **kw):
     frames, mask, active = video()
     runner = engine.ChunkedVideoRunner(model, HW, chunk=CHUNK, **kw)
     return runner(torch.Generator().manual_seed(0), frames, mask, active)
+
+
+def injected_video():
+    """``video`` in a bucket of 4 slots: slots 1 and 2 at frame 0, slot 3
+    injected at frame 3 (inside the first chunk) and slot 4 at frame 5 (the
+    first frame of the second)."""
+    frames, mask, _ = video()
+    mask = np.concatenate([mask, np.zeros(mask.shape[:-1] + (2,), np.float32)], axis=-1)
+    active = np.array([[True, True, False, False]])
+    injections = {}
+    for t, slot, (y, x) in ((3, 3, (40, 6)), (5, 4, (4, 44))):
+        idx = np.zeros((1,) + HW, np.uint8)
+        idx[0, y:y + 12, x:x + 12] = slot
+        new = np.zeros((1, 4), bool)
+        new[0, slot - 1] = True
+        injections[t] = (idx, new)
+    return frames, mask, active, injections
+
+
+def run_injected(model, **kw):
+    frames, mask, active, injections = injected_video()
+    runner = engine.ChunkedVideoRunner(model, HW, chunk=CHUNK, injectable=True, **kw)
+    return runner(torch.Generator().manual_seed(0), frames, mask, active, injections)
 
 
 def traced(fn):
@@ -245,3 +272,40 @@ def test_reset_empties_the_record(port):
     assert profiling.recorded()["spans"]
     profiling.reset()
     assert profiling.recorded() == {"requests": 0, "request_s": 0.0, "spans": {}, "counts": {}}
+
+
+def test_untraced_injection_records_nothing(port, monkeypatch):
+    def refuse(name):
+        raise AssertionError(f"span {name} built with tracing off")
+
+    monkeypatch.setattr(profiling, "_RecordFunctionFast", refuse)
+    profiling.reset()
+    run_injected(port)
+    assert profiling.recorded() == {"requests": 0, "request_s": 0.0, "spans": {}, "counts": {}}
+
+
+@pytest.mark.parametrize("sharded", [False, True], ids=["one_device", "obj_grid"])
+def test_slot_counters_follow_the_injections(port, sharded):
+    kw = dict(mesh=make_mesh2(1, 2, devices=["cpu", "cpu"])) if sharded else {}
+    off = run_injected(port, **kw)
+    on, prof = traced(lambda: run_injected(port, **kw))
+    np.testing.assert_array_equal(on, off)
+    rec = profiling.recorded("engine.video")
+    # 4 slots stepped on each of the T - 1 frames; 2 live on frames 1-2, 3 from
+    # the injection at frame 3, 4 from the one at frame 5
+    assert {k: rec["counts"][k] for k in SLOTS} == {
+        "engine.slots": 4 * (T - 1), "engine.injected": 2,
+        "engine.active_slots": 2 * 2 + 3 * 2 + 4 * (T - 5)}
+    # each injecting chunk's host block, and each injecting frame's upload and
+    # overwrite (on every shard of the grid)
+    assert calls(rec)["engine.inject"] == 2 + 2 + 2 * (2 if sharded else 1)
+    assert calls(rec)["engine.decode"] == (T - 1) * (5 if sharded else 1)
+    assert_flat(prof)
+
+
+def test_davis_shaped_runs_inject_nothing(port):
+    traced(lambda: run_video(port))
+    rec = profiling.recorded("engine.video")
+    assert "engine.inject" not in rec["spans"]
+    assert {k: v for k, v in rec["counts"].items() if k in SLOTS} == {
+        "engine.slots": 2 * (T - 1), "engine.active_slots": 2 * (T - 1)}
