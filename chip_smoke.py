@@ -68,10 +68,13 @@ Needs one CUDA device and the CUDA toolkit; imports nothing of JAX or of
    device memory beside ``run_video``'s.
 7. bfloat16 streaming session, the online serving path: a
    ``StreamingSession`` with the same weights (raw 480x854, in 480x864, out
-   480x854, two slots), ``warmup``, ``start`` and 12 pushes, each launching
-   each kernel exactly once, held against ``engine.init_memory`` +
-   ``engine.step`` on the same preprocessed frames and draw (>= 99% of
-   pixels per frame); then ``prepare_grow(3)``, ``grow(3)`` and
+   480x854, two slots), ``warmup`` (which captures the push as a CUDA
+   graph), ``start`` and 12 pushes, each a replay that launches no kernel
+   from the host, held against ``engine.init_memory`` + ``engine.step`` on
+   the same preprocessed frames and draw (>= 99% of pixels per frame); 12
+   more replayed pushes under the profiler, whose records of the card's
+   kernels must show each kernel run once per push (``launches_session``);
+   then ``prepare_grow(3)``, ``grow(3)`` (a new capture) and
    ``add_objects`` with a third box, which must hold index 3, the memory
    in use growing by far less than one copy of the weights. Prints the
    push's wall p50/p95 and the device's busy ms per push.
@@ -194,7 +197,9 @@ Needs one CUDA device and the CUDA toolkit; imports nothing of JAX or of
    the unsharded runner's (smoke numbers: the shards share one card). A
    ``StreamingSession`` on 1x2 from 2 slots: 5 pushes, ``grow(4)``,
    ``add_objects`` of slots 3 and 4 (exactly their boxes), 6 pushes, each
-   step 2 launches per kernel and >= 99% equal to the unsharded session's.
+   step 2 launches per kernel and >= 99% equal to the unsharded session's,
+   which replays its CUDA graph: the profiler's kernel records count its
+   12 steps and ``grow(4)``'s capture, 13 per kernel.
    The ``Evaluator`` with ``obj_parallel=2`` and ``eval_devices`` patched
    to [cuda:0, cuda:0] on phase 8's video 0: a 1x2 runner, 2 x (T - 1)
    launches, >= 99% equal to phase 8's PNGs. One float32 S3 train step
@@ -231,7 +236,7 @@ Needs one CUDA device and the CUDA toolkit; imports nothing of JAX or of
 13. one JSON line with every kernel's numbers (``launches`` from the
    bfloat16 run, ``launches_f32`` from the float32 one, ``launches_runner``
    from phase 6's index runner, ``launches_session`` over phase 7's 12
-   pushes, ``launches_export`` from phase 7b's replay (equal to the live
+   replayed pushes, by the card's records, ``launches_export`` from phase 7b's replay (equal to the live
    runner's), ``launches_eval`` from phase 8's bfloat16 ``val``,
    ``launches_train`` and ``launches_train_f32`` from phase 8b's 10-step
    runs, ``launches_ddp`` from phase 10's 10-step bfloat16 run and
@@ -889,6 +894,23 @@ def counted(fn, expect, label: str):
     return out, launches
 
 
+def kernels_ran(fn):
+    """Run ``fn`` under the profiler; returns (fn's result, the card's
+    records of each kernel): the launches that ran, from the host or
+    replayed from a CUDA graph, which ``counted``'s host counts miss."""
+    import re
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return out, {k: sum(bool(re.search(rf"\b{kernel}\b", n)) for n in names)
+                 for k, kernel in (("em_loop", "em_loop_kernel"), ("read_memory", "read_kernel"))}
+
+
 def runner_path(model, card: str) -> dict:
     """Phase 6: the chunked runner at bfloat16; returns the index runner's
     launch counts."""
@@ -959,8 +981,9 @@ def runner_path(model, card: str) -> dict:
 
 
 def session_path(model, card: str) -> dict:
-    """Phase 7: the streaming session at bfloat16; returns the launch counts
-    summed over its pushes."""
+    """Phase 7: the streaming session at bfloat16, whose pushes replay its
+    CUDA graph; returns the card's K1 and K2 records summed over 12 replayed
+    pushes."""
     import torch
     from swem_tpu_torch import engine
     from swem_tpu_torch.bench import box_mask, uint8_frames
@@ -985,20 +1008,22 @@ def session_path(model, card: str) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     wall, shares = [], []
-    totals = {"em_loop": 0, "read_memory": 0}
     for f in frames[1:N_PUSH + 1]:
         t0 = time.perf_counter()
-        got, launches = counted(lambda: sess.push(f), 1, "session push")
+        got, _ = counted(lambda: sess.push(f), 0, "session push (a replay)")
         wall.append((time.perf_counter() - t0) * 1e3)
-        for k in totals:
-            totals[k] += launches[k]
         mem, ref, _ = engine.step(model, mem, pre(f), active, OUT_SIZE)
         shares.append(float((got == ref[0].cpu().numpy()).mean()))
     peak2 = torch.cuda.max_memory_allocated() / 2 ** 20
+    _, totals = kernels_ran(lambda: [sess.push(f) for f in frames[1:N_PUSH + 1]])
     print(f"session (bfloat16): {N_PUSH} pushes, index pixels identical to init_memory + step "
-          f"per frame {' '.join(f'{s:.6f}' for s in shares)}; launches {totals}", flush=True)
+          f"per frame {' '.join(f'{s:.6f}' for s in shares)}; host launches 0 per push (each "
+          f"replays the session's graph); the card's kernel records over {N_PUSH} more replayed "
+          f"pushes {totals}", flush=True)
     if min(shares) < 0.99:
         fail(f"session: only {min(shares):.4f} of a frame's pixels agree with step")
+    if totals != {k: N_PUSH for k in totals}:
+        fail(f"session: the card ran {totals} over {N_PUSH} replayed pushes, expected one each")
     busy = measure_device_latency(sess, frames[0], labels, frames[1:N_PUSH + 1])
 
     weights = sum(t.numel() * t.element_size() for t in sess.model.state_dict().values())
@@ -2442,7 +2467,15 @@ def obj_session(m4, cards: list) -> None:
                                 out_size=OUT_SIZE, n_slots=2, device=dev, mesh=mesh)
         sess.warmup()
         sess.start(sframes[0], first)
-        streams[shards] = counted(lambda: steps(sess), shards * N_PUSH, f"session {shards}")[0]
+        if mesh is not None:
+            streams[shards] = counted(lambda: steps(sess), shards * N_PUSH, f"session {shards}")[0]
+            continue
+        # unsharded, the pushes replay the session's graph: counted on the
+        # card, where grow(4)'s capture runs one eager push besides
+        streams[shards], ran = kernels_ran(lambda: steps(sess))
+        if ran != {k: N_PUSH + 1 for k in ran}:
+            fail(f"object session: the unsharded session ran {ran} over {N_PUSH} steps and a "
+                 f"capture, expected {N_PUSH + 1} each")
     shares = (streams[2] == streams[1]).reshape(N_PUSH, -1).mean(1)
     held = float((streams[2][OBJ_GROW_AT][late > 0] == late[late > 0]).mean())
     print(f"object session (bfloat16) 1x2 grid over [{', '.join(map(str, grid))}]: {N_PUSH} "

@@ -18,6 +18,7 @@ from swem_tpu_torch.models.resnet import (
     run_stages,
     stem_rest,
 )
+from swem_tpu_torch.utils import kept
 
 # ImageNet normalization; float32 constants, as the reference stores them
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -30,19 +31,13 @@ def imagenet_constants(device: torch.device, dtype: torch.dtype):
             torch.tensor(IMAGENET_STD, dtype=torch.float32, device=device).to(dtype))
 
 
-def normalize_image(frame: torch.Tensor, dtype: torch.dtype, kept: dict) -> torch.Tensor:
+def normalize_image(frame: torch.Tensor, dtype: torch.dtype, store: dict) -> torch.Tensor:
     """(..., H, W, 3) RGB in [0, 1] -> ImageNet-normalized (..., 3, H, W) in
     ``dtype``, the float32 constants rounded to it. The constants are made
-    once per device and dtype and kept in ``kept``, a dict of the caller's,
-    but made per call while ``torch.compile`` or ``torch.export`` traces."""
-    if torch.compiler.is_compiling():
-        mean, std = imagenet_constants(frame.device, dtype)
-    else:
-        key = (frame.device, dtype)
-        if key not in kept:
-            with torch.inference_mode(False), torch.no_grad():
-                kept[key] = imagenet_constants(frame.device, dtype)
-        mean, std = kept[key]
+    once per device and dtype and kept in ``store``, a dict of the caller's
+    (``utils.kept``)."""
+    mean, std = kept(store, (frame.device, dtype),
+                     lambda: imagenet_constants(frame.device, dtype))
     return ((frame.to(dtype) - mean) / std).movedim(-1, -3)
 
 

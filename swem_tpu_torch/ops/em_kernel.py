@@ -29,7 +29,7 @@ from swem_tpu_torch.ops import build
 TILES = (32, 16)  # pixels per tile item of the kernel: the widest whose CTA fits
 CK_MULT, L_MULT = 16, 8  # the kernel's multiples of Ck and L
 MAX_SMEM = 232448  # dynamic shared memory of one H100 block
-launches = 0  # real launches of the kernel
+launches = 0  # host launches of the kernel: a CUDA graph counts its capture, not its replays
 _barriers: Dict[Tuple[int, int], torch.Tensor] = {}  # (device, stream) -> grid barrier counter
 
 

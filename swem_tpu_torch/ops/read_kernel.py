@@ -29,7 +29,7 @@ from swem_tpu_torch.ops.em_kernel import l2norm
 
 MULT = 4  # the kernel's multiple of Ck and Lm
 MAX_SMEM = 232448  # dynamic shared memory of one H100 block
-launches = 0  # real launches of the kernel
+launches = 0  # host launches of the kernel: a CUDA graph counts its capture, not its replays
 
 
 def read_plain(qk, mk, mv, base_valid, *, tau: float):

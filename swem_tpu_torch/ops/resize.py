@@ -14,20 +14,39 @@ conventions in JAX:
 bfloat16 input is interpolated one axis at a time with its weights rounded
 to bfloat16, as the JAX package does (``w.astype(x.dtype)``), where
 ``F.interpolate`` would compute in float32 and round once.
+
+The index and weight taps are computed on the host once per shape, device
+and dtype and kept on the device (``_taps``), so a resize copies nothing
+from the host and runs inside a CUDA graph's capture (``serve.py``).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Callable, Dict, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from swem_tpu_torch.utils import kept
+
+# the module's store of taps, by (method, in, out, dtype, device): they depend
+# on shapes alone, so every caller shares them for the process's life
+_kept: Dict[tuple, tuple] = {}
+
+
+def _taps(key: tuple, device, make: Callable[[], tuple]) -> tuple:
+    """``make()``'s host tensors moved to ``device``, kept per ``key`` and
+    device (``utils.kept``)."""
+    return kept(_kept, key + (device,), lambda: tuple(t.to(device) for t in make()))
+
 
 def _nearest_indices(in_size: int, out_size: int, device) -> torch.Tensor:
-    scale = torch.tensor(in_size / out_size, dtype=torch.float32)
-    idx = torch.floor(torch.arange(out_size, dtype=torch.float32) * scale).long()
-    return idx.clamp_(0, in_size - 1).to(device)
+    def make():
+        scale = torch.tensor(in_size / out_size, dtype=torch.float32)
+        idx = torch.floor(torch.arange(out_size, dtype=torch.float32) * scale).long()
+        return (idx.clamp_(0, in_size - 1),)
+
+    return _taps(("nearest", in_size, out_size), device, make)[0]
 
 
 def _source_coords(in_size: int, out_size: int) -> torch.Tensor:
@@ -37,15 +56,17 @@ def _source_coords(in_size: int, out_size: int) -> torch.Tensor:
     return (torch.arange(out_size, dtype=torch.float32) + 0.5) * scale - 0.5
 
 
-def _linear_taps(in_size: int, out_size: int):
-    """Bilinear taps: indices i0, i1 and the float32 weight w1 of i1, each (out,)."""
+def _linear_taps(in_size: int, out_size: int, dtype: torch.dtype):
+    """Bilinear taps: indices i0, i1 and the weight w1 of i1, computed in
+    float32 and rounded to ``dtype``, each (out,)."""
     src = _source_coords(in_size, out_size).clamp_min(0.0)
     i0 = src.floor().long().clamp_max(in_size - 1)
-    return i0, (i0 + 1).clamp_max(in_size - 1), src - i0.float()
+    return i0, (i0 + 1).clamp_max(in_size - 1), (src - i0.float()).to(dtype)
 
 
-def _cubic_taps(in_size: int, out_size: int, A: float = -0.75):
-    """Bicubic taps: indices (out, 4) and float32 weights (out, 4)."""
+def _cubic_taps(in_size: int, out_size: int, dtype: torch.dtype, A: float = -0.75):
+    """Bicubic taps: the four indices, then the four weights (computed in
+    float32, rounded to ``dtype``), each (out,)."""
     src = _source_coords(in_size, out_size)
     i0 = src.floor()
     t = src - i0
@@ -54,7 +75,7 @@ def _cubic_taps(in_size: int, out_size: int, A: float = -0.75):
     ax2, ax3 = ax * ax, ax * ax * ax
     w = torch.where(ax <= 1.0, (A + 2.0) * ax3 - (A + 3.0) * ax2 + 1.0,
                     torch.where(ax < 2.0, A * ax3 - 5.0 * A * ax2 + 8.0 * A * ax - 4.0 * A, 0.0))
-    return idx, w
+    return tuple(idx.T) + tuple(w.to(dtype).T)
 
 
 def _resize_axis(x: torch.Tensor, axis: int, out_size: int, method: str) -> torch.Tensor:
@@ -67,19 +88,17 @@ def _resize_axis(x: torch.Tensor, axis: int, out_size: int, method: str) -> torc
     shape[axis] = out_size
 
     def take(i):
-        return x.index_select(axis, i.to(x.device))
+        return x.index_select(axis, i)
 
-    def weight(w):
-        return w.to(x.device, x.dtype).reshape(shape)
-
+    key = (method, in_size, out_size, x.dtype)
     if method == "bilinear":
-        i0, i1, w1 = _linear_taps(in_size, out_size)
-        w = weight(w1)
+        i0, i1, w1 = _taps(key, x.device, lambda: _linear_taps(in_size, out_size, x.dtype))
+        w = w1.reshape(shape)
         return take(i0) * (1.0 - w) + take(i1) * w
-    idx, ws = _cubic_taps(in_size, out_size)
-    out = take(idx[:, 0]) * weight(ws[:, 0])
+    taps = _taps(key, x.device, lambda: _cubic_taps(in_size, out_size, x.dtype))
+    out = take(taps[0]) * taps[4].reshape(shape)
     for tap in range(1, 4):
-        out = out + take(idx[:, tap]) * weight(ws[:, tap])
+        out = out + take(taps[tap]) * taps[4 + tap].reshape(shape)
     return out
 
 

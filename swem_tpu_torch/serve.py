@@ -18,6 +18,16 @@ Frames upload as uint8 and are normalized on the device; predictions
 return to the host as uint8 index maps. The session runs in
 ``ModelConfig.dtype`` on CUDA unless given ``device="cpu"``.
 
+CUDA graphs: ``warmup`` on a CUDA device without a mesh captures one push
+at the session's shapes (``_PushGraph``): the frame's upload from a pinned
+staging buffer, the /255 and bicubic, ``engine.step`` and the map's copy
+into a pinned host buffer. While the session holds that graph, a push of a
+``raw_hw`` frame replays it, with no Python between its kernels; every other
+push, ``start`` and ``add_objects`` run eagerly and write their memory into
+the graph's state tensors. A session on the CPU or over a mesh holds no
+graph. ``grow`` captures the grown slot count, and a push recaptures first
+where the weights the graph reads have changed.
+
 Random draws: the initial prototypes come from ``torch.Generator().
 manual_seed(seed)``, so ``start`` draws the same bases for the same seed on
 every device (``models/em.py::init_bases`` draws on the CPU). ``grow``'s
@@ -40,6 +50,7 @@ from __future__ import annotations
 import dataclasses
 import threading
 import time
+from operator import attrgetter
 from typing import Optional, Tuple
 
 import numpy as np
@@ -52,7 +63,9 @@ from swem_tpu_torch.models import em
 from swem_tpu_torch.models.swem import SWEM
 from swem_tpu_torch.ops.resize import resize
 from swem_tpu_torch.parallel.mesh import EngineSharding
-from swem_tpu_torch.utils.profiling import device_busy_seconds, request, span
+from swem_tpu_torch.utils.profiling import count, device_busy_seconds, request, span
+
+_version = attrgetter("_version")
 
 
 def _check_uint8(frame, where: str) -> None:
@@ -61,6 +74,76 @@ def _check_uint8(frame, where: str) -> None:
         raise TypeError(f"{where}() wants uint8 frames (got {dtype}): the on-device "
                         "preprocess divides by 255, so pre-normalized floats would yield "
                         "near-black inputs")
+
+
+def _memory_tensors(mem: em.VOSMemory) -> tuple:
+    return (mem.first.kappa, mem.first.nu, mem.first.zita, mem.update.kappa, mem.update.nu,
+            mem.update.zita, mem.obj_seen, mem.mem_count)
+
+
+def _memory(tensors) -> em.VOSMemory:
+    """The inverse of ``_memory_tensors``."""
+    t = list(tensors)
+    return em.VOSMemory(em.Bases(*t[:3]), em.Bases(*t[3:6]), t[6], t[7])
+
+
+def _copy_memory(dst: em.VOSMemory, src: em.VOSMemory) -> None:
+    for d, s in zip(_memory_tensors(dst), _memory_tensors(src)):
+        d.copy_(s)
+
+
+class _PushGraph:
+    """One push captured as a CUDA graph at the session's shapes.
+
+    The graph reads a pinned uint8 staging buffer and its own state tensors
+    (``mem``: both banks, ``obj_seen``, ``mem_count``; ``active``), which
+    the session updates in place and never rebinds. It uploads the frame,
+    runs the /255 and bicubic and ``engine.step``, writes the new memory
+    into ``mem`` and copies the map into the pinned ``fetched``. A replay
+    launches nothing from the host: K1's and K2's ``launches`` count the
+    capture's launch, and the card runs the graph's copy on each replay.
+
+    The capture follows the session's eager warm-up, which chose cuDNN's
+    algorithms and made the kept parameters (``models/layers.prepared``),
+    and one eager push on the capture stream, which makes K1's grid barrier
+    and cuBLAS's workspace of that stream: nothing is allocated for them
+    in the graph's pool. The graph is stale once a parameter or buffer of
+    the model is updated in place or moved (``load_state_dict``, an
+    optimizer step, ``.to``): their versions and data pointers are
+    stamped at the capture.
+    """
+
+    def __init__(self, session: "StreamingSession", stream: torch.cuda.Stream):
+        dev, model, n_slots = session.device, session.model, session.n_slots
+        self.sources = list(model.parameters()) + list(model.buffers())
+        self.stamp = self._stamp()
+        # fresh_memory's banks share their tensors: each state tensor owns its own
+        fresh = em.fresh_memory(session._draw(0, n_slots).to(dev))
+        self.mem = _memory(t.clone() for t in _memory_tensors(fresh))
+        self.active = torch.zeros((1, n_slots), dtype=torch.bool, device=dev)
+        self.staging = torch.zeros(session.raw_hw + (3,), dtype=torch.uint8, pin_memory=True)
+        self.fetched = torch.empty(session.out_size, dtype=torch.uint8, pin_memory=True)
+        self.staging_np, self.fetched_np = self.staging.numpy(), self.fetched.numpy()
+
+        def push():
+            f = session._normalize(self.staging[None].to(dev, non_blocking=True))
+            return engine.step(model, self.mem, f, self.active, session.out_size)
+
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream):
+            push()
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, stream=stream):
+            mem, pred, _ = push()
+            _copy_memory(self.mem, mem)
+            self.fetched.copy_(pred[0], non_blocking=True)
+        self.outputs = mem, pred  # the pool's blocks the replays write
+
+    def _stamp(self) -> tuple:
+        return tuple(map(_version, self.sources)), tuple(map(torch.Tensor.data_ptr, self.sources))
+
+    def stale(self) -> bool:
+        return self._stamp() != self.stamp
 
 
 class _PreparedGrowth:
@@ -124,11 +207,17 @@ class StreamingSession:
         self._active: Optional[torch.Tensor] = None
         self._frame_count = 0
         self._prepared: Optional[_PreparedGrowth] = None
+        self._graph: Optional[_PushGraph] = None
+        self._stream: Optional[torch.cuda.Stream] = None
 
     # ------------------------------------------------------------------ #
     def _pre(self, frame) -> torch.Tensor:
         """uint8 (H,W,3) on the host -> normalized float32 (1,h,w,3) at in_size."""
-        f = torch.from_numpy(np.ascontiguousarray(frame)[None]).to(self.device).float() / 255.0
+        return self._normalize(torch.from_numpy(np.ascontiguousarray(frame)[None]).to(self.device))
+
+    def _normalize(self, frame: torch.Tensor) -> torch.Tensor:
+        """uint8 (1,H,W,3) on the device -> float32 in [0, 1], bicubic to in_size."""
+        f = frame.float() / 255.0
         if tuple(f.shape[1:3]) != self.in_size:
             f = resize(f, self.in_size, "bicubic")
         return f
@@ -158,10 +247,39 @@ class StreamingSession:
         if self._mem is None:
             raise RuntimeError("call start() first")
 
+    def _capture(self) -> None:
+        """Capture the push at the current slot count, on a CUDA device
+        without a mesh, and carry the stream's state into the graph's
+        tensors; elsewhere hold no graph. A prepared grow's thread is
+        waited for first: a capture fails on another thread's
+        allocations."""
+        self._graph = None
+        if self.device.type != "cuda" or self._esh is not None:
+            return
+        if self._prepared is not None:
+            self._prepared.thread.join()
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+        self._graph = _PushGraph(self, self._stream)
+        if self._mem is not None:
+            self._set_state(self._mem, self._active)
+
+    def _set_state(self, mem, active: torch.Tensor) -> None:
+        """Make (mem, active) the stream's state: copied into the graph's
+        tensors while the session holds a graph, else bound."""
+        if self._graph is not None:
+            _copy_memory(self._graph.mem, mem)
+            self._graph.active.copy_(active)
+            mem, active = self._graph.mem, self._graph.active
+        self._mem, self._active = mem, active
+
     # ------------------------------------------------------------------ #
     def warmup(self) -> None:
-        """Run every path once on zeros so that no frame pays a first call."""
+        """Run every path once on zeros so that no frame pays a first call;
+        then, on a CUDA device without a mesh, capture the push as a CUDA
+        graph that later pushes replay."""
         self._warm(self.n_slots)
+        self._capture()
 
     def start(self, frame0: np.ndarray, init_mask: np.ndarray, *,
               bases: Optional[em.Bases] = None) -> None:
@@ -179,25 +297,48 @@ class StreamingSession:
                     active[0, obj - 1] = True
                 if bases is None:
                     bases = self._draw(self.seed, self.n_slots)
-                self._active = torch.from_numpy(active).to(self.device)
+                active_t = torch.from_numpy(active).to(self.device)
                 f0 = self._pre(frame0)
                 mask = torch.from_numpy(onehot[None]).to(self.device)
-            self._mem = engine.init_memory(self.model, None, f0, mask, self._active, bases=bases,
-                                           sharding=self._esh)
+            mem = engine.init_memory(self.model, None, f0, mask, active_t, bases=bases,
+                                     sharding=self._esh)
+            self._set_state(mem, active_t)
         self._frame_count = 1
 
     def push(self, frame: np.ndarray) -> np.ndarray:
-        """Segment one frame and update the memory. Returns (Ho,Wo) uint8."""
+        """Segment one frame and update the memory. Returns (Ho,Wo) uint8,
+        a fresh array."""
         self._require_started()
         _check_uint8(frame, "push")
         with request("serve.push"):
+            count("serve.pushes")
+            if self._graph is not None and np.shape(frame) == self.raw_hw + (3,):
+                return self._replay(frame)
             with span("serve.upload"):
                 f = self._pre(frame)
-            self._mem, pred, _ = engine.step(self.model, self._mem, f, self._active,
-                                             self.out_size, sharding=self._esh)
+            mem, pred, _ = engine.step(self.model, self._mem, f, self._active, self.out_size,
+                                       sharding=self._esh)
+            self._set_state(mem, self._active)
             self._frame_count += 1
             with span("serve.fetch"):
                 return pred.cpu().numpy()[0]
+
+    def _replay(self, frame: np.ndarray) -> np.ndarray:
+        """``push`` as one replay of the captured graph, recaptured first
+        where the weights it reads have changed; the map is copied out of
+        the pinned buffer, which the next replay overwrites."""
+        if self._graph.stale():
+            self._capture()
+        g = self._graph
+        with span("serve.upload"):
+            np.copyto(g.staging_np, frame)
+        with span("serve.replay"):
+            g.graph.replay()
+        count("serve.graph_replays")
+        self._frame_count += 1
+        with span("serve.fetch"):
+            torch.cuda.current_stream(self.device).synchronize()
+            return g.fetched_np.copy()
 
     def add_objects(self, frame: np.ndarray, mask: np.ndarray, new_ids) -> np.ndarray:
         """Mid-stream object injection (YouTube-VOS protocol). ``mask`` is a
@@ -217,10 +358,10 @@ class StreamingSession:
                 f = self._pre(frame)
                 inject_mask = torch.from_numpy(onehot[None]).to(self.device)
                 grown = self._active | new_t
-            self._mem, pred, _ = engine.step(self.model, self._mem, f, self._active,
-                                             self.out_size, inject_mask=inject_mask,
-                                             inject_new=new_t, sharding=self._esh)
-            self._active = grown
+            mem, pred, _ = engine.step(self.model, self._mem, f, self._active, self.out_size,
+                                       inject_mask=inject_mask, inject_new=new_t,
+                                       sharding=self._esh)
+            self._set_state(mem, grown)
             self._frame_count += 1
             with span("serve.fetch"):
                 return pred.cpu().numpy()[0]
@@ -254,7 +395,8 @@ class StreamingSession:
         growth alone leaves the stream's predictions unchanged. If
         ``prepare_grow(n_slots)`` ran, its thread is joined here and its
         failure raised; a prepared warm-up of another size is kept for a
-        later ``grow`` to that size.
+        later ``grow`` to that size. A session that holds a graph captures
+        the grown push here, on the caller's thread.
         """
         self._require_started()
         self._check_growable(n_slots)
@@ -284,6 +426,8 @@ class StreamingSession:
         self._active = torch.cat([self._active, grown], dim=1)
         self.cfg = dataclasses.replace(self.cfg, max_objs=n_slots)
         self.n_slots = n_slots
+        if self._graph is not None:
+            self._capture()
 
     @property
     def frames_seen(self) -> int:

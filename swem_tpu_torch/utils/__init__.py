@@ -1,7 +1,8 @@
 """Logging, meters and small utilities (the port's copy of
 ``swem_tpu/utils/__init__.py``): the logger, the training loss meter, the
 evaluation's frames/s meter, seeding of Python's and numpy's generators,
-padded sizes, a source snapshot and a parameter count."""
+padded sizes, a source snapshot, a parameter count and ``kept``, the store
+of tensors made once and reused across calls."""
 
 from __future__ import annotations
 
@@ -11,9 +12,12 @@ import random
 import sys
 import time
 from collections import deque
-from typing import Optional
+from typing import Callable, Hashable, Optional, TypeVar
 
 import numpy as np
+import torch
+
+T = TypeVar("T")
 
 
 def mkdir(path: str) -> None:
@@ -134,3 +138,17 @@ def count_model_size(params) -> float:
         tensors = [v for k, v in params.items()
                    if not k.endswith(("running_mean", "running_var", "num_batches_tracked"))]
     return sum(int(t.numel()) for t in tensors) / 1e6
+
+
+def kept(store: dict, key: Hashable, make: Callable[[], T]) -> T:
+    """``make()``, made on the first call with ``key`` and kept in ``store``
+    for the later ones. The caller owns ``store``: its entries live as long
+    as it does. Made outside ``torch.inference_mode`` and without gradients,
+    so that a later call with autograd on may read it; made per call and
+    kept nowhere while ``torch.compile`` or ``torch.export`` traces."""
+    if torch.compiler.is_compiling():
+        return make()
+    if key not in store:
+        with torch.inference_mode(False), torch.no_grad():
+            store[key] = make()
+    return store[key]

@@ -35,7 +35,7 @@ HW = (64, 64)
 T, CHUNK = 7, 4  # chunks of 4 and 2 frames
 STAGES = ("engine.upload", "engine.init_memory", "engine.encode_keys", "engine.read",
           "engine.decode", "engine.inject", "engine.memorize", "engine.fetch", "serve.upload",
-          "serve.fetch")
+          "serve.replay", "serve.fetch")
 SLOTS = ("engine.slots", "engine.active_slots", "engine.injected")
 
 
@@ -177,6 +177,29 @@ def test_push_records_each_stage_once(port):
     assert calls(start) == {"serve.upload": 1, "engine.init_memory": 1}
     assert not any(e.is_user_annotation for e in stage_events(prof))
     assert_flat(prof)
+
+
+def test_warmed_cpu_session_pushes_eagerly(port):
+    """A warmed session on the CPU captures no graph: its pushes are today's
+    eager pushes, map for map, and count as pushes, none as a replay; with
+    tracing off nothing is recorded."""
+    frames, labels = stream(n=4)
+    plain = session(port)
+    plain.start(frames[0], labels)
+    want = [plain.push(f) for f in frames[1:]]
+    sess = session(port)
+    sess.warmup()
+    assert sess._graph is None
+    sess.start(frames[0], labels)
+    profiling.reset()
+    got = [sess.push(frames[1])]
+    assert profiling.recorded() == {"requests": 0, "request_s": 0.0, "spans": {}, "counts": {}}
+    more, _ = traced(lambda: [sess.push(f) for f in frames[2:]])
+    np.testing.assert_array_equal(np.stack(got + more), np.stack(want))
+    push = profiling.recorded("serve.push")
+    assert push["counts"].get("serve.pushes") == 2
+    assert "serve.graph_replays" not in push["counts"]
+    assert "serve.replay" not in push["spans"]
 
 
 def test_object_sharded_runner_keeps_the_stages_flat(port):
