@@ -11,15 +11,16 @@ convolutions and matrix products compute in full float32 whatever the
 caller's TF32 flags, at both compute dtypes. The features enter the memory
 as float32.
 
-Object parallelism: ``init_memory``, ``step``, ``run_chunk``, ``run_video``
-and ``run_video_scores`` take ``sharding=`` (``parallel.EngineSharding``).
-The memory is then the grid ``mem[i][j]`` of its shards (batch rows i,
-object slots j). Each shard key-encodes its rows' frames, reads its slots'
-memory (K2) and decodes its slots; each grid row's per-object probabilities
-go, as exact copies, to every shard of the row, where the soft aggregation
-and the injection run; each shard then value-encodes and memorizes its
-slots (K1). Predictions come from column 0 of each row, joined over the
-rows on the device of ``active``.
+Object parallelism: every call runs over a grid of shards (batch rows i,
+object slots j): ``sharding=`` (``parallel.EngineSharding``), whose memory
+is the grid ``mem[i][j]`` of its shards, or else the 1x1 grid of the
+model's device, whose memory is one ``VOSMemory`` and which copies nothing.
+Each shard key-encodes its rows' frames, reads its slots' memory (K2) and
+decodes its slots; each grid row's per-object probabilities go, as exact
+copies, to every shard of the row, where the soft aggregation and the
+injection run; each shard then value-encodes and memorizes its slots (K1).
+Predictions come from column 0 of each row, joined over the rows on the
+device of ``active``.
 """
 
 from __future__ import annotations
@@ -71,6 +72,21 @@ def _slots(masks, cols: slice):
     return torch.cat([masks[..., :1], masks[..., cols.start + 1:cols.stop + 1]], dim=-1)
 
 
+def _grid(model: SWEM, sharding: Optional[EngineSharding]) -> EngineSharding:
+    """The grid a call runs over: ``sharding``, else the model's device's 1x1."""
+    return EngineSharding.single(model.device) if sharding is None else sharding
+
+
+def _as_grid(x, sharding: Optional[EngineSharding]):
+    """An unsharded call's memory (or keys) as the 1x1 grid of it."""
+    return [[x]] if sharding is None else x
+
+
+def _as_given(grid, sharding: Optional[EngineSharding]):
+    """The inverse of ``_as_grid``."""
+    return grid[0][0] if sharding is None else grid
+
+
 @_entry_point
 def init_memory(model: SWEM, generator: Optional[torch.Generator], frame0, init_mask, active, *,
                 bases: Optional[em.Bases] = None, sharding: Optional[EngineSharding] = None):
@@ -85,32 +101,28 @@ def init_memory(model: SWEM, generator: Optional[torch.Generator], frame0, init_
     initialized from its rows and slots of the inputs.
     """
     with span("engine.init_memory"):
-        if sharding is None:
-            return _init_memory(model, generator, frame0, init_mask, active, bases)
-        cfg = model.cfg
+        cfg, grid = model.cfg, _grid(model, sharding)
         if bases is None:
             bases = em.init_bases(generator, 1, init_mask.shape[-1] - 1, cfg.keydim, cfg.valdim,
                                   cfg.num_bases)
-        reps = sharding.replicas(model)
-        rows, cols = sharding.rows(active.shape[0]), sharding.cols(active.shape[1])
-        split = sharding.split_bases(bases, active.shape[0])
-        return [[_init_memory(reps[d], None, frame0[rows[i]].to(d),
-                              _slots(init_mask[rows[i]], cols[j]).to(d),
-                              active[rows[i], cols[j]].to(d), split[i][j])
-                 for j, d in enumerate(sharding.grid[i])] for i in range(sharding.n_data)]
+        reps = grid.replicas(model)
+        rows, cols = grid.rows(active.shape[0]), grid.cols(active.shape[1])
+        split = grid.split_bases(bases, active.shape[0])
+        return _as_given([[_init_memory(reps[d], frame0[rows[i]].to(d),
+                                        _slots(init_mask[rows[i]], cols[j]).to(d),
+                                        active[rows[i], cols[j]].to(d), split[i][j])
+                           for j, d in enumerate(row)] for i, row in enumerate(grid.grid)],
+                         sharding)
 
 
-def _init_memory(model: SWEM, generator, frame0, init_mask, active, bases):
-    """``init_memory`` of one shard."""
+def _init_memory(model: SWEM, frame0, init_mask, active, bases: em.Bases):
+    """``init_memory`` of one shard, from its bases on its device."""
     cfg = model.cfg
     qk16, _, s16, _, _ = model.encode_key(frame0)
     init_mask_in = resize(init_mask.float(), tuple(frame0.shape[1:3]), "nearest")
     mv16 = model.encode_value(frame0, init_mask_in, s16)
     B, _, h, w = qk16.shape
-    if bases is None:
-        bases = em.init_bases(generator, 1, init_mask.shape[-1] - 1, cfg.keydim, cfg.valdim,
-                              cfg.num_bases)
-    mem = em.fresh_memory(bases.to(model.device).expand(B))
+    mem = em.fresh_memory(bases.expand(B))
     em_masks = prepare_em_masks(init_mask, init_mask.float(), (h, w))
     return em.memorize(mem, _flat_qk(qk16), _flat_mv(mv16), em_masks, active,
                        n_iters=cfg.num_em_iters, tau=cfg.em_tau)
@@ -159,29 +171,19 @@ def step(model: SWEM, mem, frame, active, out_size: Tuple[int, int], *,
     Returns (mem, pred_idx (B,Ho,Wo) uint8, pred_mask (B,Ho,Wo,N+1)); with
     ``sharding``, ``mem`` is the grid of ``init_memory(sharding=)``.
     """
-    if sharding is not None:
-        reps = sharding.replicas(model)
-        with span("engine.upload"):
-            frames = _split_rows(sharding, frame, active.shape[0], 0)
-        return _step_shards(sharding, reps, mem, frames, keys, active, out_size, do_memorize,
-                            inject_mask, inject_new)
+    grid = _grid(model, sharding)
+    reps = grid.replicas(model)
+    frames = _split_rows(grid, frame, active.shape[0], 0)
     if keys is None:
         with span("engine.encode_keys"):
-            keys = model.encode_frame(frame)
-    qk16, qv16, s16, skip8, skip4, vf = keys
-    with span("engine.read"):
-        context = model.match(qk16, qv16, mem)
-    with span("engine.decode"):
-        _, pred_mask = model.decode(context, skip8, skip4, active.float(), out_size)
-        if inject_mask is None:
-            pred_idx = pred_mask.argmax(dim=-1).to(torch.uint8)
-    if inject_mask is not None:
-        with span("engine.inject"):
-            pred_mask, active = _inject(pred_mask, active, inject_mask, inject_new)
-            pred_idx = pred_mask.argmax(dim=-1).to(torch.uint8)
-    if do_memorize:
-        mem = memorize_from_pred(model, mem, frame, active, qk16, s16, vf, pred_idx, pred_mask)
-    return mem, pred_idx, pred_mask
+            keys = [[reps[d].encode_frame(f) for f, d in zip(fs, row)]
+                    for fs, row in zip(frames, grid.grid)]
+    else:
+        keys = _as_grid(keys, sharding)
+    mem, pred_idx, pred_mask = _step_shards(grid, reps, _as_grid(mem, sharding), frames, keys,
+                                            active, out_size, do_memorize, inject_mask,
+                                            inject_new)
+    return _as_given(mem, sharding), pred_idx, pred_mask
 
 
 def memorize_from_pred(model: SWEM, mem, frame, active, qk16, s16, vf, pred_idx, pred_mask,
@@ -208,47 +210,51 @@ def _split_rows(sharding: EngineSharding, x, B: int, axis: int) -> list:
 def _step_shards(sharding: EngineSharding, reps: dict, mem, frames, keys, active,
                  out_size: Tuple[int, int], do_memorize: bool, inject_mask=None,
                  inject_new=None):
-    """``step`` over the grid: ``frames`` and ``keys`` (or None) are grids of
-    each shard's (B/n_data, ...) inputs on its device; ``active`` and the
-    injection are whole, on one device."""
+    """``step`` over the grid: ``mem``, ``frames`` and ``keys`` are grids of
+    each shard's memory and (B/n_data, ...) inputs on its device; ``active``
+    and the injection are whole, on one device. A grid row reads its slots,
+    then decodes and aggregates them in one ``engine.decode``; each of its
+    shards then injects and memorizes."""
     B, N = active.shape
     rows, cols = sharding.rows(B), sharding.cols(N)
-    if keys is None:
-        with span("engine.encode_keys"):
-            keys = [[reps[d].encode_frame(frames[i][j]) for j, d in enumerate(sharding.grid[i])]
-                    for i in range(sharding.n_data)]
-    probs = [[None] * sharding.n_obj for _ in range(sharding.n_data)]
-    for i, j, d in sharding.shards():
-        qk16, qv16, _, skip8, skip4, _ = keys[i][j]
-        with span("engine.read"):
-            context = reps[d].match(qk16, qv16, mem[i][j])
-        with span("engine.decode"):
-            probs[i][j] = reps[d].decode_objects(context, skip8, skip4,
-                                                 active[rows[i], cols[j]].to(d).float(), out_size)
     mem = [list(row) for row in mem]
     idx_rows, mask_rows = [], []
-    for i, j, d in sharding.shards():
+    for i, row in enumerate(sharding.grid):
+        act, contexts = active[rows[i]], []
+        for j, d in enumerate(row):
+            qk16, qv16 = keys[i][j][:2]
+            with span("engine.read"):
+                contexts.append(reps[d].match(qk16, qv16, mem[i][j]))
         with span("engine.decode"):
-            # the one gather per frame: every shard of row i takes its objects
-            logits = aggregate(sharding.gather_objects(probs[i], d))
-            pred_mask = torch.softmax(logits, dim=-1)
-            act = active[rows[i]].to(d)
+            probs = [reps[d].decode_objects(contexts[j], *keys[i][j][3:5],
+                                            act[:, cols[j]].to(d).float(), out_size)
+                     for j, d in enumerate(row)]
+            # the one gather per frame: every shard of the row takes its objects
+            masks = [torch.softmax(aggregate(sharding.gather_objects(probs, d)), dim=-1)
+                     for d in row]
             if inject_mask is None:
-                pred_idx = pred_mask.argmax(dim=-1).to(torch.uint8)
-        if inject_mask is not None:
-            with span("engine.inject"):
-                pred_mask, act = _inject(pred_mask, act, inject_mask[rows[i]].to(d),
-                                         inject_new[rows[i]].to(d))
-                pred_idx = pred_mask.argmax(dim=-1).to(torch.uint8)
-        if j == 0:
-            idx_rows.append(pred_idx)
-            mask_rows.append(pred_mask)
-        if do_memorize:
-            qk16, _, s16, _, _, vf = keys[i][j]
-            mem[i][j] = memorize_from_pred(reps[d], mem[i][j], frames[i][j], act[:, cols[j]],
-                                           qk16, s16, vf, pred_idx, _slots(pred_mask, cols[j]),
-                                           slot0=cols[j].start)
+                idxs = [m.argmax(dim=-1).to(torch.uint8) for m in masks]
+        for j, d in enumerate(row):
+            pred_mask, shard_act = masks[j], act.to(d)
+            if inject_mask is None:
+                pred_idx = idxs[j]
+            else:
+                with span("engine.inject"):
+                    pred_mask, shard_act = _inject(pred_mask, shard_act,
+                                                   inject_mask[rows[i]].to(d),
+                                                   inject_new[rows[i]].to(d))
+                    pred_idx = pred_mask.argmax(dim=-1).to(torch.uint8)
+            if j == 0:
+                idx_rows.append(pred_idx)
+                mask_rows.append(pred_mask)
+            if do_memorize:
+                qk16, _, s16, _, _, vf = keys[i][j]
+                mem[i][j] = memorize_from_pred(reps[d], mem[i][j], frames[i][j],
+                                               shard_act[:, cols[j]], qk16, s16, vf, pred_idx,
+                                               _slots(pred_mask, cols[j]), slot0=cols[j].start)
     home = active.device
+    if sharding.n_data == 1:  # one row: its predictions as they are
+        return mem, idx_rows[0].to(home), mask_rows[0].to(home)
     with span("engine.decode"):
         return (mem, torch.cat([t.to(home) for t in idx_rows]),
                 torch.cat([t.to(home) for t in mask_rows]))
@@ -306,16 +312,13 @@ def _chunk_steps(model: SWEM, mem, frames, active, out_size, final, scores, inje
     if (inject_idx is None) != (inject_new is None):
         raise ValueError("run_chunk: inject_idx and inject_new go together")
     new_rows = None if inject_new is None else np.asarray(inject_new, dtype=bool)
+    grid = _grid(model, sharding)
+    reps = grid.replicas(model)
     with span("engine.encode_keys"):
-        if sharding is None:
-            frame_list, keys = _per_frame(frames, _encode_keys(model, frames))
-        else:
-            reps = sharding.replicas(model)
-            shard_frames = [[_per_frame(f, _encode_keys(reps[d], f))
-                             for f, d in zip(fs, sharding.grid[i])]
-                            for i, fs in enumerate(_split_rows(sharding, frames,
-                                                               active.shape[0], 1))]
-    preds = []
+        shard_frames = [[_per_frame(f, _encode_keys(reps[d], f)) for f, d in zip(fs, row)]
+                        for fs, row in zip(_split_rows(grid, frames, active.shape[0], 1),
+                                           grid.grid)]
+    mem, preds = _as_grid(mem, sharding), []
     for t in range(frames.shape[0]):
         inject, grown = {}, active
         if new_rows is not None and new_rows[t].any():
@@ -324,17 +327,27 @@ def _chunk_steps(model: SWEM, mem, frames, active, out_size, final, scores, inje
                                               frames.device)
                 inject, grown = dict(inject_mask=inject_mask, inject_new=new), active | new
         last = final and t == frames.shape[0] - 1
-        if sharding is None:
-            mem, pred_idx, pred_mask = step(model, mem, frame_list[t], active, out_size,
-                                            do_memorize=not last, keys=keys[t], **inject)
-        else:
-            mem, pred_idx, pred_mask = _step_shards(
-                sharding, reps, mem, [[f[t] for f, _ in row] for row in shard_frames],
-                [[k[t] for _, k in row] for row in shard_frames], active, out_size, not last,
-                **inject)
+        mem, pred_idx, pred_mask = _step_shards(
+            grid, reps, mem, [[f[t] for f, _ in row] for row in shard_frames],
+            [[k[t] for _, k in row] for row in shard_frames], active, out_size, not last,
+            **inject)
         active = grown
         preds.append(pred_mask if scores else pred_idx)
-    return mem, preds, active
+    return _as_given(mem, sharding), preds, active
+
+
+def _run_video(model: SWEM, generator, frames, init_mask, active, out_size, bases, sharding,
+               scores: bool) -> torch.Tensor:
+    """``run_video``, or with ``scores`` ``run_video_scores``."""
+    mem = init_memory(model, generator, frames[0], init_mask, active, bases=bases,
+                      sharding=sharding)
+    if frames.shape[0] == 1:
+        slots = (init_mask.shape[-1],) if scores else ()
+        return torch.zeros((0, frames.shape[1]) + tuple(out_size) + slots,
+                           dtype=torch.float32 if scores else torch.uint8, device=frames.device)
+    _, preds, _ = run_chunk(model, mem, frames[1:], active, out_size, final=True, scores=scores,
+                            sharding=sharding)
+    return preds
 
 
 @_entry_point
@@ -345,14 +358,8 @@ def run_video(model: SWEM, generator: Optional[torch.Generator], frames, init_ma
     frames 1..T-1. Frame 0 and its mask seed the memory; the last frame is
     not memorized. All T-1 frames are key-encoded in one batch, so memory
     grows with T: long videos go through ``ChunkedVideoRunner``."""
-    mem = init_memory(model, generator, frames[0], init_mask, active, bases=bases,
-                      sharding=sharding)
-    T, B = frames.shape[:2]
-    if T == 1:
-        return torch.zeros((0, B) + tuple(out_size), dtype=torch.uint8, device=frames.device)
-    _, preds, _ = run_chunk(model, mem, frames[1:], active, out_size, final=True,
-                            sharding=sharding)
-    return preds
+    return _run_video(model, generator, frames, init_mask, active, out_size, bases, sharding,
+                      scores=False)
 
 
 @_entry_point
@@ -362,15 +369,8 @@ def run_video_scores(model: SWEM, generator: Optional[torch.Generator], frames, 
                      sharding: Optional[EngineSharding] = None) -> torch.Tensor:
     """``run_video`` returning the soft masks (T-1,B,Ho,Wo,N+1) float32, which
     multi-scale and flip evaluation average before the argmax."""
-    mem = init_memory(model, generator, frames[0], init_mask, active, bases=bases,
-                      sharding=sharding)
-    T, B = frames.shape[:2]
-    if T == 1:
-        return torch.zeros((0, B) + tuple(out_size) + (init_mask.shape[-1],),
-                           dtype=torch.float32, device=frames.device)
-    _, scores, _ = run_chunk(model, mem, frames[1:], active, out_size, final=True, scores=True,
-                             sharding=sharding)
-    return scores
+    return _run_video(model, generator, frames, init_mask, active, out_size, bases, sharding,
+                      scores=True)
 
 
 def ladder_sizes(chunk: int):
@@ -426,13 +426,14 @@ class ChunkedVideoRunner:
     both (B,H,W,3) and (C,B,H,W,3). ``injectable=True`` admits mid-video
     object injection (YouTube-VOS) through ``__call__``'s ``injections``.
 
-    ``mesh`` (``parallel.make_mesh`` or ``make_mesh2``): a 'data' axis
-    shards the video batch, each row of the grid carrying its own videos'
-    memory; an 'obj' axis shards the object slots (``EngineSharding``),
-    which must divide the slot count of every call (``warmup`` and each
-    call raise ``ValueError`` otherwise; one model serves every slot count,
-    so ``model.cfg.max_objs`` is not the budget checked). Frames upload to the model's device and go to the shards from
-    there; the memory between chunks stays split by slot.
+    ``mesh`` (``parallel.make_mesh`` or ``make_mesh2``; without one, the
+    1x1 grid of the model's device): a 'data' axis shards the video batch,
+    each row of the grid carrying its own videos' memory; an 'obj' axis
+    shards the object slots (``EngineSharding``), which must divide the
+    slot count of every call (``warmup`` and each call raise ``ValueError``
+    otherwise; one model serves every slot count, so ``model.cfg.max_objs``
+    is not the budget checked). Frames upload to the model's device and go
+    to the shards from there; the memory between chunks stays split by slot.
     """
 
     def __init__(self, model: SWEM, out_size: Tuple[int, int], chunk: int = 16,
@@ -479,8 +480,7 @@ class ChunkedVideoRunner:
                                       scores=self.scores, sharding=self.sharding)
             if not self.scores:
                 preds.cpu()
-        devices = [dev] if self.sharding is None else self.sharding.devices
-        for d in devices:
+        for d in _grid(self.model, self.sharding).devices:
             if d.type == "cuda":
                 torch.cuda.synchronize(d)
 

@@ -21,6 +21,7 @@ process group each process's grid holds its own device only.
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -154,7 +155,8 @@ class EngineSharding:
     an engine ``VOSMemory`` becomes a grid ``mem[i][j]``.
 
     A mesh without an 'obj' axis raises, as in the JAX package; a 1-D
-    'data' mesh is ``EngineSharding.of(mesh)``'s (n_data, 1) grid.
+    'data' mesh is ``EngineSharding.of(mesh)``'s (n_data, 1) grid, and an
+    unsharded call runs over ``EngineSharding.single(device)``'s 1x1 grid.
     """
 
     def __init__(self, mesh: Mesh):
@@ -168,6 +170,7 @@ class EngineSharding:
         self.mesh = mesh
         self.grid = grid
         self.n_data, self.n_obj = grid.shape
+        self.devices = list(dict.fromkeys(grid.ravel()))  # distinct, in grid order
         self._replicas = (None, None, {})  # (source model, its versions, {device: model})
 
     @classmethod
@@ -177,13 +180,14 @@ class EngineSharding:
             return cls(mesh)
         return cls(Mesh(mesh.devices.reshape(-1, 1), ("data", "obj")))
 
+    @staticmethod
+    def single(device) -> "EngineSharding":
+        """The 1x1 grid of ``device``: one shard holding the whole batch and
+        every slot, the plan of a call without a mesh (one per device)."""
+        return _single(_device(device))
+
     def device(self, i: int, j: int) -> torch.device:
         return self.grid[i, j]
-
-    @property
-    def devices(self) -> list:
-        """The distinct devices of the grid, in grid order."""
-        return list(dict.fromkeys(self.grid.ravel()))
 
     def shards(self):
         """(i, j, device) of every shard, row by row."""
@@ -207,14 +211,18 @@ class EngineSharding:
         own device, a copy of it elsewhere. The copies are cached by the
         source model and the versions of its parameters and buffers, so
         that weights loaded into it (``load_state_dict``, an optimizer
-        step) reach them; the source is held by reference, never by id."""
+        step) reach them; the source is held by reference, never by id. A
+        grid wholly on the model's device needs no copy and no versions."""
+        home = _device(model.device)
+        if self.devices == [home]:
+            return {home: model}
         tensors = list(model.parameters()) + list(model.buffers())
         versions = tuple(t._version for t in tensors)
         source, seen, reps = self._replicas
         if source is not model or seen != versions:
             from swem_tpu_torch.models.swem import SWEM
 
-            home, state, reps = _device(model.device), None, {}
+            state, reps = None, {}
             for dev in self.devices:
                 if dev == home:
                     reps[dev] = model
@@ -265,3 +273,8 @@ class EngineSharding:
         if len(row) == 1:
             return row[0].to(device)
         return torch.cat([t.to(device) for t in row], dim=-1)
+
+
+@functools.lru_cache(maxsize=None)
+def _single(device: torch.device) -> EngineSharding:
+    return EngineSharding(make_mesh2(1, 1, devices=[device]))

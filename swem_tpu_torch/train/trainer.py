@@ -55,7 +55,7 @@ from swem_tpu_torch.config import SWEMConfig, SolverConfig, full_float32
 from swem_tpu_torch.engine import _flat_mv, _flat_qk, _slots
 from swem_tpu_torch.models import em
 from swem_tpu_torch.models.swem import SWEM, aggregate, hard_mask_from_pred, prepare_em_masks
-from swem_tpu_torch.parallel.mesh import EngineSharding, make_mesh2
+from swem_tpu_torch.parallel.mesh import EngineSharding
 from swem_tpu_torch.train.losses import make_criterion
 from swem_tpu_torch.train.solver import make_optimizer
 
@@ -177,9 +177,8 @@ def _unrolled_forward(model: SWEM, frames, init_mask, valid_obj, bases: em.Bases
     device: shard (i, j) runs batch rows i and object slots j, and the
     logits come from column 0 of each row, joined over the rows.
     """
-    if sharding is None:
-        sharding = EngineSharding(make_mesh2(1, 1, devices=[model.device]))
-    elif any(r is not model for r in sharding.replicas(model).values()):
+    sharding = EngineSharding.single(model.device) if sharding is None else sharding
+    if any(r is not model for r in sharding.replicas(model).values()):
         raise ValueError(f"the sharded train step runs every shard on the model's device "
                          f"{model.device}; the mesh holds {sharding.devices}")
     cfg = model.cfg

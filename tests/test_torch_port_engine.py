@@ -8,6 +8,7 @@ bases handed to the port (the two frameworks draw different random numbers).
 import os
 import subprocess
 import sys
+from collections import Counter
 from functools import partial
 from pathlib import Path
 
@@ -16,10 +17,12 @@ import jax
 import jax.numpy as jnp
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from swem_tpu import engine as jeng
 from swem_tpu.models import em as jem
 from swem_tpu_torch import engine
+from swem_tpu_torch.config import full_float32
 from swem_tpu_torch.models import em
 from swem_tpu_torch.models.swem import SWEM
 from _torch_port_util import port_cfg, t, tiny_pair
@@ -105,6 +108,61 @@ def test_step_with_injection_matches(pair):
                                   inject_mask=t(inject), inject_new=t(inject_new))
     np.testing.assert_allclose(ppm.numpy(), np.asarray(jpm), rtol=0, atol=1e-4)
     assert bool(pmem.obj_seen.all()) and bool(np.asarray(jmem.obj_seen).all())
+
+
+class DispatchedOps(TorchDispatchMode):
+    """The aten ops dispatched inside, by name, views aside: a view launches
+    nothing on a device."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = Counter()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if not func.is_view:
+            self.ops[str(func)] += 1
+        return func(*args, **(kwargs or {}))
+
+
+def plain_step(port, mem, frame, active, inject):
+    """One frame as the plain composition of the model's stages, on one device."""
+    with torch.no_grad(), full_float32():
+        qk16, qv16, s16, skip8, skip4, vf = port.encode_frame(frame)
+        context = port.match(qk16, qv16, mem)
+        _, pred_mask = port.decode(context, skip8, skip4, active.float(), OUT)
+        if inject:
+            pred_mask, active = engine._inject(pred_mask, active, inject["inject_mask"],
+                                               inject["inject_new"])
+        pred_idx = pred_mask.argmax(dim=-1).to(torch.uint8)
+        mem = engine.memorize_from_pred(port, mem, frame, active, qk16, s16, vf, pred_idx,
+                                        pred_mask)
+    return mem, pred_idx, pred_mask
+
+
+@pytest.mark.parametrize("injecting", [False, True], ids=["no injection", "injection"])
+def test_step_launches_the_plain_composition(pair, injecting):
+    """``engine.step`` without ``sharding=`` runs over the 1x1 grid of the
+    model's device and dispatches exactly the ops of the plain composition
+    (encode -> match -> decode -> argmax -> inject -> memorize): the grid
+    adds no ``aten.cat`` and no ``aten.copy_``, nor any other op that could
+    launch, and gives the composition's bits."""
+    _, _, port = pair
+    frames, init_mask, _ = make_video(np.random.default_rng(6))
+    frame, active = t(frames[1]), t(np.asarray([[True, False]]))
+    mem = engine.init_memory(port, torch.Generator().manual_seed(0), t(frames[0]),
+                             t(init_mask), active)
+    inject = {}
+    if injecting:
+        inject = dict(inject_mask=t(init_mask), inject_new=t(np.asarray([[False, True]])))
+    with DispatchedOps() as grid:
+        got = engine.step(port, mem, frame, active, OUT, **inject)
+    with DispatchedOps() as plain:
+        want = plain_step(port, mem, frame, active, inject)
+    assert grid.ops == plain.ops, (grid.ops - plain.ops, plain.ops - grid.ops)
+    assert plain.ops["aten.cat.default"] > 0  # the count sees the stages' own cats
+    for a, b in zip(got[1:] + (got[0].update.kappa, got[0].update.nu, got[0].obj_seen),
+                    want[1:] + (want[0].update.kappa, want[0].update.nu, want[0].obj_seen)):
+        assert torch.equal(a, b)
 
 
 def test_init_memory_draw_is_seeded(pair):

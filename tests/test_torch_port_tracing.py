@@ -206,10 +206,10 @@ def test_object_sharded_runner_keeps_the_stages_flat(port):
     mesh = make_mesh2(1, 2, devices=["cpu", "cpu"])
     _, prof = traced(lambda: run_video(port, mesh=mesh))
     got = calls(profiling.recorded("engine.video"))
-    # per frame: each of the 2 shards reads and decodes its objects, then
-    # aggregates the gathered ones, and one more decode span joins the rows
+    # per frame: each of the 2 shards reads its objects, and the grid's one
+    # row decodes them and aggregates the gathered ones in one decode span
     assert got["engine.read"] == 2 * (T - 1)
-    assert got["engine.decode"] == 5 * (T - 1)
+    assert got["engine.decode"] == T - 1
     assert got["engine.memorize"] == 2 * (T - 2)
     assert got["engine.encode_keys"] == 2 and got["engine.init_memory"] == 1
     assert_flat(prof)
@@ -322,7 +322,7 @@ def test_slot_counters_follow_the_injections(port, sharded):
     # each injecting chunk's host block, and each injecting frame's upload and
     # overwrite (on every shard of the grid)
     assert calls(rec)["engine.inject"] == 2 + 2 + 2 * (2 if sharded else 1)
-    assert calls(rec)["engine.decode"] == (T - 1) * (5 if sharded else 1)
+    assert calls(rec)["engine.decode"] == T - 1
     assert_flat(prof)
 
 
