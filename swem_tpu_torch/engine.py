@@ -33,6 +33,7 @@ import torch
 
 from swem_tpu_torch.config import full_float32, no_grad
 from swem_tpu_torch.models import em
+from swem_tpu_torch.models.layers import stamp_of
 from swem_tpu_torch.models.swem import (
     SWEM,
     aggregate,
@@ -41,6 +42,7 @@ from swem_tpu_torch.models.swem import (
 )
 from swem_tpu_torch.ops.resize import resize
 from swem_tpu_torch.parallel.mesh import EngineSharding
+from swem_tpu_torch.utils import cuda_graphs
 from swem_tpu_torch.utils.profiling import count, request, span, tracing
 
 
@@ -207,6 +209,18 @@ def _split_rows(sharding: EngineSharding, x, B: int, axis: int) -> list:
             for i in range(sharding.n_data)]
 
 
+def _decode_row(sharding: EngineSharding, reps: dict, row, contexts: list, keys: list, act,
+                cols: list, out_size: Tuple[int, int]) -> list:
+    """A grid row's decode: each shard decodes its slots from its read
+    ``contexts`` and ``keys``; every shard of the row then takes the row's
+    objects (the one gather per frame) and aggregates them -> each shard's
+    soft masks (B,Ho,Wo,N+1). ``act``: the row's (B,N) slots."""
+    probs = [reps[d].decode_objects(contexts[j], *keys[j][3:5], act[:, cols[j]].to(d).float(),
+                                    out_size)
+             for j, d in enumerate(row)]
+    return [torch.softmax(aggregate(sharding.gather_objects(probs, d)), dim=-1) for d in row]
+
+
 def _step_shards(sharding: EngineSharding, reps: dict, mem, frames, keys, active,
                  out_size: Tuple[int, int], do_memorize: bool, inject_mask=None,
                  inject_new=None):
@@ -226,12 +240,7 @@ def _step_shards(sharding: EngineSharding, reps: dict, mem, frames, keys, active
             with span("engine.read"):
                 contexts.append(reps[d].match(qk16, qv16, mem[i][j]))
         with span("engine.decode"):
-            probs = [reps[d].decode_objects(contexts[j], *keys[i][j][3:5],
-                                            act[:, cols[j]].to(d).float(), out_size)
-                     for j, d in enumerate(row)]
-            # the one gather per frame: every shard of the row takes its objects
-            masks = [torch.softmax(aggregate(sharding.gather_objects(probs, d)), dim=-1)
-                     for d in row]
+            masks = _decode_row(sharding, reps, row, contexts, keys[i], act, cols, out_size)
             if inject_mask is None:
                 idxs = [m.argmax(dim=-1).to(torch.uint8) for m in masks]
         for j, d in enumerate(row):
@@ -258,6 +267,95 @@ def _step_shards(sharding: EngineSharding, reps: dict, mem, frames, keys, active
     with span("engine.decode"):
         return (mem, torch.cat([t.to(home) for t in idx_rows]),
                 torch.cat([t.to(home) for t in mask_rows]))
+
+
+class _StepGraphs:
+    """The frame step of the 1x1 grid at one shape, captured as CUDA graphs
+    cut at K2 and K1 (``utils/cuda_graphs.CutGraph``), one per stage span:
+    ``engine.read`` replays the memory's gather and the query's flatten,
+    calls K2 (``read_affinity``: the keys' l2-norms and the kernel), and
+    replays top-l, the concat and the fusion;
+    ``engine.decode`` replays the decoder, the aggregation and the argmax;
+    ``engine.memorize`` replays the resize, the value encoder, the EM masks
+    and the slots' gating, launches K1, and replays the ``nu`` update and
+    the memory write.
+
+    The graphs read the tensors ``frame``, ``keys`` (the frame's
+    ``encode_frame`` tuple) and ``active``, and the state ``mem``, which the
+    memorize graph rewrites; ``step`` copies each frame's inputs into them
+    and never rebinds them. The capture follows the runner's eager warm-up
+    (cuDNN's algorithms chosen, the tower parameters kept,
+    ``models/layers.prepared``) and one eager step on the capture stream,
+    which makes K1's grid barrier and cuBLAS's workspace of that stream
+    outside the graphs' pool. Stale once a parameter or buffer of the model
+    is updated in place or moved (``layers.stamp_of``).
+    """
+
+    def __init__(self, model: SWEM, out_size: Tuple[int, int], scores: bool, frame, active,
+                 mem: em.VOSMemory, stream):
+        grid = EngineSharding.single(model.device)
+        reps, row, cols = grid.replicas(model), grid.grid[0], grid.cols(active.shape[-1])
+        self.sources = list(model.parameters()) + list(model.buffers())
+        self.stamp = stamp_of(self.sources)
+        self.scores = scores
+        self.frame, self.active = frame.clone(), active.clone()
+        self.keys = tuple(k.clone() for k in model.encode_frame(frame))
+        self.mem = em.memory_of(t.clone() for t in em.memory_tensors(mem))
+
+        def read():
+            return model.match(self.keys[0], self.keys[1], self.mem)
+
+        def decode(context):
+            mask, = _decode_row(grid, reps, row, [context], [self.keys], self.active, cols,
+                                out_size)
+            return mask.argmax(dim=-1).to(torch.uint8), mask
+
+        def memorize(pred_idx, pred_mask):
+            qk16, _, s16, _, _, vf = self.keys
+            em.copy_memory(self.mem, memorize_from_pred(model, self.mem, self.frame, self.active,
+                                                        qk16, s16, vf, pred_idx, pred_mask))
+
+        with cuda_graphs.capturing(stream) as pool:
+            memorize(*decode(read()))
+            self.read = cuda_graphs.CutGraph(read, pool)
+            self.decode = cuda_graphs.CutGraph(lambda: decode(self.read.outputs), pool)
+            self.memorize = cuda_graphs.CutGraph(lambda: memorize(*self.decode.outputs), pool)
+
+    def stale(self) -> bool:
+        return stamp_of(self.sources) != self.stamp
+
+    def step(self, sharding, reps, mem, frames, keys, active, out_size, do_memorize: bool,
+             inject_mask=None, inject_new=None):
+        """``_step_shards`` on the 1x1 grid, by replays. The frame, its keys
+        and ``active`` are copied into the graphs' tensors, and a memory
+        that is not ``mem`` into ``mem``. An injecting frame runs
+        ``_inject`` eagerly between the decode's replay and the memorize's,
+        into the decode's outputs and ``active``. Returns the grid of
+        ``mem`` and the one prediction the runner keeps (``pred_mask`` with
+        ``scores``, else ``pred_idx``) copied out of the graph's outputs,
+        which the next replay rewrites, the other None."""
+        if mem[0][0] is not self.mem:
+            em.copy_memory(self.mem, mem[0][0])
+        for dst, src in zip((self.frame, self.active) + self.keys,
+                            (frames[0][0], active) + tuple(keys[0][0])):
+            dst.copy_(src)
+        with span("engine.read"):
+            self.read.replay()
+        with span("engine.decode"):
+            self.decode.replay()
+        pred_idx, pred_mask = self.decode.outputs
+        if inject_mask is not None:
+            with span("engine.inject"):
+                injected, grown = _inject(pred_mask, self.active, inject_mask, inject_new)
+                pred_mask.copy_(injected)
+                pred_idx.copy_(injected.argmax(dim=-1).to(torch.uint8))
+                self.active.copy_(grown)
+        if do_memorize:
+            with span("engine.memorize"):
+                self.memorize.replay()
+        if self.scores:
+            return [[self.mem]], None, pred_mask.clone()
+        return [[self.mem]], pred_idx.clone(), None
 
 
 def _to_device(x, device) -> torch.Tensor:
@@ -307,8 +405,10 @@ def run_chunk(model: SWEM, mem, frames, active, out_size: Tuple[int, int], *,
 
 
 def _chunk_steps(model: SWEM, mem, frames, active, out_size, final, scores, inject_idx,
-                 inject_new, sharding):
-    """``run_chunk`` with its predictions left as a list of the frames'."""
+                 inject_new, sharding, step=_step_shards):
+    """``run_chunk`` with its predictions left as a list of the frames',
+    each frame stepped by ``step`` (``_step_shards``, or a runner's
+    ``_StepGraphs.step``)."""
     if (inject_idx is None) != (inject_new is None):
         raise ValueError("run_chunk: inject_idx and inject_new go together")
     new_rows = None if inject_new is None else np.asarray(inject_new, dtype=bool)
@@ -327,7 +427,7 @@ def _chunk_steps(model: SWEM, mem, frames, active, out_size, final, scores, inje
                                               frames.device)
                 inject, grown = dict(inject_mask=inject_mask, inject_new=new), active | new
         last = final and t == frames.shape[0] - 1
-        mem, pred_idx, pred_mask = _step_shards(
+        mem, pred_idx, pred_mask = step(
             grid, reps, mem, [[f[t] for f, _ in row] for row in shard_frames],
             [[k[t] for _, k in row] for row in shard_frames], active, out_size, not last,
             **inject)
@@ -392,6 +492,12 @@ def ladder_sizes(chunk: int):
     return sizes
 
 
+def _graph_key(frame, active) -> tuple:
+    """A runner's graphs by the shape they step: one frame (B,H,W,3) as
+    preprocessed, and the slot count."""
+    return tuple(frame.shape), frame.dtype, active.shape[-1]
+
+
 def _count_slots(active, injections, T: int) -> None:
     """The slot counters of a runner call, from its host inputs: per frame
     1..T-1, ``engine.slots`` (B x N stepped), ``engine.active_slots`` (those
@@ -434,6 +540,15 @@ class ChunkedVideoRunner:
     otherwise; one model serves every slot count, so ``model.cfg.max_objs``
     is not the budget checked). Frames upload to the model's device and go
     to the shards from there; the memory between chunks stays split by slot.
+
+    CUDA graphs: on a CUDA device without a mesh, ``warmup`` also captures
+    the frame step at its shape (batch, slot count, input size) as graphs
+    cut at K2 and K1 (``_StepGraphs``). Every frame of a call at a warmed
+    shape replays them, K1 and K2 launched between the replays, with the
+    same bits as the eager step; a call at another shape, over a mesh or on
+    the CPU runs eagerly. A call recaptures first where the weights the
+    graphs read have changed. The graphs' tensors are the runner's own, so
+    calls of one runner must not overlap (from several threads).
     """
 
     def __init__(self, model: SWEM, out_size: Tuple[int, int], chunk: int = 16,
@@ -445,6 +560,8 @@ class ChunkedVideoRunner:
         self.injectable = injectable
         self.sharding = None if mesh is None else EngineSharding.of(mesh)
         self._pre = preprocess if preprocess is not None else (lambda f: f)
+        self._graphs = {}  # _graph_key -> _StepGraphs
+        self._stream: Optional[torch.cuda.Stream] = None
 
     def _upload(self, frames: np.ndarray) -> torch.Tensor:
         """Host frames -> the model's device, preprocessed."""
@@ -466,8 +583,9 @@ class ChunkedVideoRunner:
         """Run init and every chunk size once on zeros, and fetch the
         predictions, so that no timed call pays a batch size's first-call
         setup (cuDNN's choice of algorithms, kernel loads, allocator
-        blocks), on every shard. ``frame_hw`` and ``frame_dtype`` describe
-        the raw host frames, before ``preprocess``."""
+        blocks), on every shard; then capture the frame step at this shape
+        (``_capture``). ``frame_hw`` and ``frame_dtype`` describe the raw
+        host frames, before ``preprocess``."""
         dev = self.model.device
         f0 = np.zeros((batch,) + tuple(frame_hw) + (3,), frame_dtype)
         mask = torch.zeros((batch,) + self.out_size + (n_slots + 1,), device=dev)
@@ -480,9 +598,35 @@ class ChunkedVideoRunner:
                                       scores=self.scores, sharding=self.sharding)
             if not self.scores:
                 preds.cpu()
+        self._capture(self._upload(f0), active, mem)
         for d in _grid(self.model, self.sharding).devices:
             if d.type == "cuda":
                 torch.cuda.synchronize(d)
+
+    def _capture(self, frame, active, mem) -> None:
+        """Capture the frame step at ``frame``'s shape (B,H,W,3, as
+        preprocessed) and ``active``'s slot count, on a CUDA device without
+        a mesh; elsewhere hold no graph. ``mem``: a memory of that shape."""
+        if self.sharding is not None or self.model.device.type != "cuda":
+            return
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.model.device)
+        self._graphs[_graph_key(frame, active)] = _StepGraphs(
+            self.model, self.out_size, self.scores, frame, active, mem, self._stream)
+
+    def _step_for(self, frame, active):
+        """How a call whose frames are like ``frame`` steps: the graphs
+        captured at its shape, recaptured first where they are stale, else
+        the eager ``_step_shards``."""
+        key = _graph_key(frame, active)
+        graphs = self._graphs.get(key)
+        if graphs is None:
+            return _step_shards
+        if graphs.stale():
+            graphs = self._graphs[key] = _StepGraphs(self.model, self.out_size, self.scores,
+                                                     graphs.frame, graphs.active, graphs.mem,
+                                                     self._stream)
+        return graphs.step
 
     def _chunk_injections(self, injections, t: int, size: int, batch: int, n_slots: int):
         """(inject_idx, inject_new) host blocks of frames t..t+size-1, or
@@ -529,6 +673,11 @@ class ChunkedVideoRunner:
                 _count_slots(active, injections, T)
             active = _to_device(active, dev)
             frame0 = self._upload(frames[0])
+        step = self._step_for(frame0, active)
+        if tracing():
+            count("engine.steps", T - 1)
+            if step is not _step_shards:
+                count("engine.graph_steps", T - 1)
         mem = init_memory(self.model, generator, frame0, init_mask, active, bases=bases,
                           sharding=self.sharding)
         preds, t = [], 1
@@ -539,7 +688,7 @@ class ChunkedVideoRunner:
                 chunk = self._upload(frames[t:t + size])
             mem, p, active = _chunk_steps(self.model, mem, chunk, active, self.out_size,
                                           t + size == T, self.scores, inject_idx, inject_new,
-                                          self.sharding)
+                                          self.sharding, step)
             preds += p
             t += size
         # one stack of every frame's prediction and, for indices, one fetch

@@ -6,8 +6,10 @@ all-zero masks, which makes their EM update a no-op.
 
 The W/E/M loop runs in ``ops/em_kernel.em_loop`` and the inference read in
 ``ops/read_kernel.read_affinity``: hand-written kernels on a CUDA tensor,
-their plain versions on a CPU tensor. The training read (differentiable,
-with the optional ``p_drop`` dropout) and the read with Gaussian locality
+their plain versions on a CPU tensor, each called through
+``utils/cuda_graphs.kernel``, where a CUDA graph of the frame step is cut
+(``engine._StepGraphs``). The training read (differentiable, with the
+optional ``p_drop`` dropout) and the read with Gaussian locality
 reweighting (``n_kernel > 0``) are one other function, ``_read_ops``, in
 PyTorch ops on every device, as they are XLA code beside the TPU kernel in
 the JAX package, which never routes a training read to its kernel. Of the
@@ -32,6 +34,7 @@ from swem_tpu_torch.ops.em_kernel import (  # noqa: F401  (E/M/W steps live with
     w_step as _w_step,
 )
 from swem_tpu_torch.ops.read_kernel import read_affinity
+from swem_tpu_torch.utils.cuda_graphs import kernel
 
 
 @dataclass
@@ -71,6 +74,24 @@ class VOSMemory:
     mem_count: torch.Tensor
 
 
+def memory_tensors(mem: VOSMemory) -> tuple:
+    """The memory's eight tensors: both banks, ``obj_seen``, ``mem_count``."""
+    return (mem.first.kappa, mem.first.nu, mem.first.zita, mem.update.kappa, mem.update.nu,
+            mem.update.zita, mem.obj_seen, mem.mem_count)
+
+
+def memory_of(tensors) -> VOSMemory:
+    """The inverse of ``memory_tensors``."""
+    t = list(tensors)
+    return VOSMemory(Bases(*t[:3]), Bases(*t[3:6]), t[6], t[7])
+
+
+def copy_memory(dst: VOSMemory, src: VOSMemory) -> None:
+    """Write ``src`` into ``dst``'s tensors, in place."""
+    for d, s in zip(memory_tensors(dst), memory_tensors(src)):
+        d.copy_(s)
+
+
 def init_bases(generator: Optional[torch.Generator], batch: int, n_objs: int, key_dim: int,
                val_dim: int, n_bases: int, device="cpu") -> Bases:
     """Random prototypes: kappa ~ N(0, 2/L), l2-normalized over channels;
@@ -101,8 +122,8 @@ def em_update(x: torch.Tensor, v: torch.Tensor, masks: torch.Tensor, bases0: Bas
     gradients; ``nu`` is differentiable through v and bases0.nu.
     """
     with no_grad():
-        z, kappa, zita = em_loop(x.float(), masks, bases0.kappa, bases0.zita,
-                                 n_iters=n_iters, tau=tau)
+        z, kappa, zita = kernel(em_loop, x.float(), masks, bases0.kappa, bases0.zita,
+                                n_iters=n_iters, tau=tau)
     zita0 = bases0.zita.detach()
     # sum_p v[b,n,p,:] z[b,n,s,p,:] -> (B,N,2,Cv,L)
     nu = (zita0 * bases0.nu + torch.matmul(v.transpose(-1, -2)[:, :, None], z)) / zita
@@ -227,5 +248,5 @@ def read_memory(qk, mk, mv, base_valid, *, tau: float, topl: int, n_kernel: int 
         mem_out, exp_aff = _read_ops(qk, mk, mv, base_valid, tau=tau, n_kernel=n_kernel,
                                      sigma=sigma, hw=hw, keep=keep)
     else:
-        mem_out, exp_aff = read_affinity(qk, mk, mv, base_valid, tau=tau)
+        mem_out, exp_aff = kernel(read_affinity, qk, mk, mv, base_valid, tau=tau)
     return mem_out, _perm_inv_feat(exp_aff, topl)

@@ -30,6 +30,15 @@ PREPS, HITS = "models.param_preps", "models.param_cache_hits"
 _version = attrgetter("_version")
 
 
+def stamp_of(sources) -> tuple:
+    """The versions and data pointers of the tensors ``sources``: what was
+    made from them is stale once their stamp changes (an in-place update
+    such as ``load_state_dict`` or an optimizer step bumps a version,
+    ``.to`` moves the data). Raises RuntimeError on an inference tensor,
+    which tracks no version."""
+    return tuple(map(_version, sources)), tuple(map(torch.Tensor.data_ptr, sources))
+
+
 def keeps_prepared(sources) -> bool:
     """Whether tensors prepared from ``sources`` may be kept across calls:
     not while ``torch.compile`` or ``torch.export`` traces (the parameters
@@ -56,8 +65,7 @@ def prepared(store: Dict[str, tuple], slot: str, dtype: torch.dtype, sources: tu
     of training with gradients on, and of an export trace)."""
     if keeps_prepared(sources):
         try:
-            stamp = (dtype, sources[0].device, *map(_version, sources),
-                     *map(torch.Tensor.data_ptr, sources))
+            stamp = (dtype, sources[0].device, stamp_of(sources))
         except RuntimeError:  # an inference tensor tracks no version: prepare per call
             stamp = None
         if stamp is not None:

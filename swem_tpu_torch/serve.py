@@ -50,7 +50,6 @@ from __future__ import annotations
 import dataclasses
 import threading
 import time
-from operator import attrgetter
 from typing import Optional, Tuple
 
 import numpy as np
@@ -60,12 +59,16 @@ from swem_tpu_torch import engine
 from swem_tpu_torch.config import ModelConfig
 from swem_tpu_torch.data.davis_test import to_onehot
 from swem_tpu_torch.models import em
+from swem_tpu_torch.models.em import (
+    copy_memory as _copy_memory,
+    memory_of as _memory,
+    memory_tensors as _memory_tensors,
+)
+from swem_tpu_torch.models.layers import stamp_of
 from swem_tpu_torch.models.swem import SWEM
 from swem_tpu_torch.ops.resize import resize
 from swem_tpu_torch.parallel.mesh import EngineSharding
 from swem_tpu_torch.utils.profiling import count, device_busy_seconds, request, span
-
-_version = attrgetter("_version")
 
 
 def _check_uint8(frame, where: str) -> None:
@@ -74,22 +77,6 @@ def _check_uint8(frame, where: str) -> None:
         raise TypeError(f"{where}() wants uint8 frames (got {dtype}): the on-device "
                         "preprocess divides by 255, so pre-normalized floats would yield "
                         "near-black inputs")
-
-
-def _memory_tensors(mem: em.VOSMemory) -> tuple:
-    return (mem.first.kappa, mem.first.nu, mem.first.zita, mem.update.kappa, mem.update.nu,
-            mem.update.zita, mem.obj_seen, mem.mem_count)
-
-
-def _memory(tensors) -> em.VOSMemory:
-    """The inverse of ``_memory_tensors``."""
-    t = list(tensors)
-    return em.VOSMemory(em.Bases(*t[:3]), em.Bases(*t[3:6]), t[6], t[7])
-
-
-def _copy_memory(dst: em.VOSMemory, src: em.VOSMemory) -> None:
-    for d, s in zip(_memory_tensors(dst), _memory_tensors(src)):
-        d.copy_(s)
 
 
 class _PushGraph:
@@ -116,7 +103,7 @@ class _PushGraph:
     def __init__(self, session: "StreamingSession", stream: torch.cuda.Stream):
         dev, model, n_slots = session.device, session.model, session.n_slots
         self.sources = list(model.parameters()) + list(model.buffers())
-        self.stamp = self._stamp()
+        self.stamp = stamp_of(self.sources)
         # fresh_memory's banks share their tensors: each state tensor owns its own
         fresh = em.fresh_memory(session._draw(0, n_slots).to(dev))
         self.mem = _memory(t.clone() for t in _memory_tensors(fresh))
@@ -139,11 +126,8 @@ class _PushGraph:
             self.fetched.copy_(pred[0], non_blocking=True)
         self.outputs = mem, pred  # the pool's blocks the replays write
 
-    def _stamp(self) -> tuple:
-        return tuple(map(_version, self.sources)), tuple(map(torch.Tensor.data_ptr, self.sources))
-
     def stale(self) -> bool:
-        return self._stamp() != self.stamp
+        return stamp_of(self.sources) != self.stamp
 
 
 class _PreparedGrowth:
